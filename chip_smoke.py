@@ -1,0 +1,649 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
+
+    python3 chip_smoke.py
+
+Phases, each printed as it runs; any failure ends the run with a non-zero
+exit:
+
+1. The card's name and power limit (``nvidia-smi``), then the build of every
+   CUDA source in ``transtacos_retunegan_tpu_torch/csrc`` with the
+   ``-Xptxas -v`` report (registers, shared memory, spills).
+2. Each decode kernel against its plain PyTorch version at the full default
+   width (H=512, A=128, D=256, r=5, M=80, 2 GRUs, prenet 256), N in {48, 128},
+   B in {1, 4}, 300 steps, float32 and bf16 weights: ``decode_step`` looped,
+   ``decode_full`` with and without early exit; every case without a stop,
+   and the B=4 cases again with rows that stop at different steps.
+3. Timing with CUDA events after warm-up at B=1, N=48, 300 steps, beside the
+   bound computed from the shapes.
+4. The main path: ``Synthesizer(device='cuda')`` at the default ``Config()``
+   with seeded weights.  Each request gets a stop head under which it
+   stops after the steps its syllables take at the training corpus's
+   speaking rate, and its decode on the card is held to the plain version
+   on its own encoder memory.  Then, with the launch counters set to 0 just
+   before and read just after, it answers ``tts_fused`` and ``tts``
+   requests and three ``GET /synth`` through the HTTP server; one request
+   is made to exceed the shared-memory fit check so that it takes the
+   per-step kernel.  Then the per-stage time of one request, the latency of
+   each request, and the wav of a small configuration on the card against
+   the same ``Synthesizer`` on the CPU.
+
+The last two lines are the kernels' JSON record and
+``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
+before printing any result.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import io
+import json
+import math
+import subprocess
+import sys
+import threading
+import time
+import urllib.request
+
+import numpy as np
+import torch
+
+SEED = 20250101
+STEPS = 300
+REQUESTS = ('ni3 hao3 shi4 jie4',
+            'wo3 men5 yi4 qi3 qu4 gong1 yuan2 san4 bu4 ba5',
+            'jin1 tian1 tian1 qi4 hen3 hao3 wo3 men5 yi4 qi3 qu4 gong1 yuan2 '
+            'san4 bu4 ba5')
+# Speaking rate of the reference's training corpus: DataBaker, after its
+# 2-sigma filter, averages 307 spectrogram frames for 16.1 pinyin syllables
+# (the reference's stats/DataBaker.stats, quoted in BASELINE.md), at the
+# 22050 Hz and hop 256 of this Config.  The last request has the corpus's
+# mean length.
+FRAMES_PER_SYLLABLE = 307 / 16.1
+HBM_BYTES_PER_S = 3.35e12              # H100 SXM
+PEAK_OPS = {torch.bfloat16: 989e12,    # dense bf16 tensor-core rate
+            torch.float32: 67e12}      # float32 outside the tensor cores
+# kernel vs plain, per output on its own scale (``errors``): float32
+# weights differ by summation order only.  With bf16 weights an order
+# difference can flip the bf16 rounding of one activation, which the
+# 300-step recurrence carries: 5e-2 absolute on the mel (as the JAX
+# package's test_bf16_close), 5e-2 of the stop logits' scale, and 1e-1
+# relative on the alignment weights, which a wrong stencil, mask or softmax
+# gets wrong by about the whole weight.
+OUTPUTS = ('mel', 'stop', 'align')
+TOL = {torch.float32: {'mel': 1e-3, 'stop': 1e-3, 'align': 1e-3},
+       torch.bfloat16: {'mel': 5e-2, 'stop': 5e-2, 'align': 1e-1}}
+SLICE_TOL = 1e-3                       # card vs CPU wav, small config, float32
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def full_width_cell(device):
+    """The decoder cell at the default Config with seeded weights and small
+    non-zero biases (a trained checkpoint's location-conv bias included)."""
+    from transtacos_retunegan_tpu_torch.config import Config
+    from transtacos_retunegan_tpu_torch.models.decoder import DecoderCell
+    from transtacos_retunegan_tpu_torch.weights import seeded_init
+    cell = seeded_init(DecoderCell(Config()), SEED)
+    g = torch.Generator().manual_seed(SEED + 1)
+    with torch.no_grad():
+        for name, p in cell.named_parameters():
+            if name.endswith('bias'):
+                p.copy_(0.1 * torch.randn(p.shape, generator=g))
+    return cell.to(device)
+
+
+def memory(dims, b: int, n: int, device, seed: int):
+    """Encoder memory for the decode: keys [B,N,A], masked values [B,N,D],
+    mask [B,N] with a different text length per row."""
+    r = np.random.RandomState(seed)
+    keys = 0.5 * r.randn(b, n, dims.a)
+    values = 0.5 * r.randn(b, n, dims.d)
+    lens = n - 7 * np.arange(b)
+    mask = (np.arange(n)[None, :] < lens[:, None]).astype(np.float64)
+    values = values * mask[..., None]
+    return tuple(torch.tensor(x, dtype=torch.float32, device=device)
+                 for x in (keys, values, mask))
+
+
+def stop_logits(fd, fp, mem, steps, decode=None):
+    """Largest of the r stop logits per row and step, [B, steps], of a
+    decode (the plain version unless ``decode`` is given) in which the stop
+    bias is -20 and no row stops."""
+    fp.f['bs'].fill_(-20.0)
+    out = fd.to_outputs(fp, *(decode or fd.decode_full_plain)(fp, *mem, steps))
+    if (out['out_lengths'] < steps * fp.dims.r).any():
+        raise RuntimeError('a row stopped while probing the stop logits')
+    p = out['stop_token_outputs'].double().cpu().numpy()
+    z = np.log(p) - np.log1p(-p) + 20.0
+    return z.reshape(p.shape[0], steps, fp.dims.r).max(-1)
+
+
+def distinct_stop_bias(z: np.ndarray, margin: float = 0.05):
+    """A stop bias under which the rows stop at different steps (a row that
+    never stops counts as one more outcome), with at least one row stopping
+    before the last step, and no logit within ``margin`` of the threshold
+    (so that rounding cannot move a stop).  Until a row stops its
+    trajectory does not depend on the bias, so with bias -c row b stops at
+    the first step whose logit reaches c.  Among such thresholds the one
+    with the most distinct outcomes, then the widest margin, wins.
+    Returns (c, stop steps) or None."""
+    best = None
+    vals = np.unique(z)
+    steps = z.shape[1]
+    for c in (vals[1:] + vals[:-1]) / 2:
+        hit = z >= c
+        first = np.where(hit.any(1), hit.argmax(1), steps)
+        gap = float(np.abs(z - c).min())
+        if gap < margin or first.min() >= steps - 1:
+            continue
+        score = (len(set(first.tolist())), gap)
+        if score[0] > 1 and (best is None or score > best[0]):
+            best = (score, c, first)
+    return None if best is None else best[1:]
+
+
+def stop_logit(p: torch.Tensor) -> torch.Tensor:
+    """Stop probabilities -> logits in float64, clipped to [-80, 8]: above 8
+    a float32 probability no longer resolves the logit, and the 0 that a
+    finished row emits maps to -80."""
+    p = p.double().clamp(min=1e-300)
+    return (torch.log(p) - torch.log1p(-p)).clamp(-80.0, 8.0)
+
+
+def errors(fp, got, ref):
+    """Differences of two decodes, each output on its own scale: 'mel'
+    absolute; 'stop' on the logits, over the largest emitted reference
+    logit without its bias (at least 1); 'align' relative to the larger of
+    the reference weight and the uniform weight 1/N; 'abs' the largest
+    absolute difference of the three.  Raises unless out_lengths agree."""
+    if not torch.equal(got['out_lengths'], ref['out_lengths']):
+        raise AssertionError(f"out_lengths {got['out_lengths'].tolist()} != "
+                             f"{ref['out_lengths'].tolist()}")
+    zr = stop_logit(ref['stop_token_outputs'])
+    emitted = ref['stop_token_outputs'] > 0
+    scale = max(1.0, float((zr - float(fp.f['bs'][0]))[emitted].abs().max()))
+    a_ref = ref['alignments']
+    return {
+        'mel': float((got['mel_outputs'] - ref['mel_outputs']).abs().max()),
+        'stop': float((stop_logit(got['stop_token_outputs']) - zr).abs().max()) / scale,
+        'align': float(((got['alignments'] - a_ref).abs()
+                        / a_ref.clamp(min=1.0 / a_ref.shape[1])).max()),
+        'abs': max(float((got[k] - ref[k]).abs().max())
+                   for k in ('mel_outputs', 'stop_token_outputs', 'alignments'))}
+
+
+def within(errs, dtype) -> bool:
+    return all(errs[k] <= TOL[dtype][k] for k in OUTPUTS)
+
+
+def err_text(errs, dtype) -> str:
+    return (' '.join(f'{k}={errs[k]:.2e}/{TOL[dtype][k]:.0e}' for k in OUTPUTS)
+            + f' abs={errs["abs"]:.2e} {"ok" if within(errs, dtype) else "FAIL"}')
+
+
+def compare_kernels(fd, device):
+    cell = full_width_cell(device)
+    worst = {'decode_step': 0.0, 'decode_full': 0.0}
+    scaled = {dtype: dict.fromkeys(OUTPUTS, 0.0) for dtype in TOL}
+    failures = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in (48, 128):
+            for b in (1, 4):
+                for regime in ('no-stop', 'rows-stop') if b > 1 else ('no-stop',):
+                    fp = fd.fold_params(cell, dtype)
+                    mem = memory(fp.dims, b, n, device, seed=n + b)
+                    if regime == 'rows-stop':
+                        found = None
+                        for gain in (1.0, 10.0, 30.0):
+                            fp = fd.fold_params(cell, dtype)
+                            fp.w['ws'].mul_(gain)
+                            found = distinct_stop_bias(stop_logits(fd, fp, mem, STEPS))
+                            if found:
+                                break
+                        if not found:
+                            raise RuntimeError('no stop bias separates the rows')
+                        fp.f['bs'].fill_(-found[0])
+                    else:
+                        fp.f['bs'].fill_(-20.0)
+                    plain = fd.to_outputs(fp, *fd.decode_full_plain(fp, *mem, STEPS))
+                    plain_ee = fd.to_outputs(
+                        fp, *fd.decode_full_plain(fp, *mem, STEPS, early_exit=True))
+                    lengths = plain['out_lengths'].tolist()
+                    if regime == 'rows-stop':
+                        want = (np.minimum(found[1] + 1, STEPS) * fp.dims.r).tolist()
+                        if lengths != want or len(set(lengths)) < 2:
+                            raise AssertionError(f'rows stop at {lengths}, not {want}')
+                    runs = (('decode_step', fd.fused_decode(fp, *mem, STEPS), plain),
+                            ('decode_full', fd.fused_decode_full(fp, *mem, STEPS), plain),
+                            ('decode_full', fd.fused_decode_full(
+                                fp, *mem, STEPS, early_exit=True), plain_ee))
+                    torch.cuda.synchronize()
+                    for (kernel, got, ref), mode in zip(runs, ('looped', 'no-exit', 'early-exit')):
+                        errs = errors(fp, got, ref)
+                        worst[kernel] = max(worst[kernel], errs['abs'])
+                        for k in OUTPUTS:
+                            scaled[dtype][k] = max(scaled[dtype][k], errs[k])
+                        log(f'  {kernel:11s} {mode:10s} {str(dtype)[6:]:8s} N={n:3d} '
+                            f'B={b} {regime:9s} lengths={lengths} ' + err_text(errs, dtype))
+                        if not within(errs, dtype):
+                            failures.append((kernel, mode, dtype, n, b, regime))
+    for dtype, errs in scaled.items():
+        log(f'  largest {str(dtype)[6:]}: '
+            + ' '.join(f'{k}={v:.2e}' for k, v in errs.items()))
+    if failures:
+        raise AssertionError(f'kernels disagree with their plain versions: {failures}')
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# phase 3: timing and bounds
+# ---------------------------------------------------------------------------
+
+def cuda_ms(fn, reps: int, warm: int = 2) -> float:
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def step_cost(fp, b: int, n: int):
+    """(matmul operations, other operations) of one decode step."""
+    d = fp.dims
+    weights = sum(t.numel() for t in fp.w.values())
+    mm = 2 * b * weights
+    other = b * (n * (2 * d.kwin * d.a + 4 * d.a + 2 * d.d + 6)
+                 + 12 * d.n_gru * d.h + 2 * d.r * (d.n_mel + 1))
+    return mm, other
+
+
+def bound(fp, b: int, n: int, steps: int, carry_bytes: int):
+    """Least time on the card: every input read once and every output
+    written once over the memory rate, or the operations over the peak rate
+    of their type, whichever is larger.  Returns (ms, 'bytes'|'operations')."""
+    d = fp.dims
+    io_bytes = (fp.wbuf.numel() * fp.wbuf.element_size() + fp.fbuf.numel() * 4
+                + 4 * b * n * (d.a + d.d + 1)                      # keys, values, mask
+                + 4 * steps * b * (d.r * d.n_mel + d.r + n + 1)    # emissions
+                + carry_bytes)
+    mm, other = step_cost(fp, b, n)
+    t_bytes = io_bytes / HBM_BYTES_PER_S
+    t_ops = steps * (mm / PEAK_OPS[fp.wbuf.dtype] + other / PEAK_OPS[torch.float32])
+    return (1e3 * max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations')
+
+
+def time_kernels(fd, device):
+    cell = full_width_cell(device)
+    fp = fd.fold_params(cell, torch.bfloat16)        # the serving weights
+    fp.f['bs'].fill_(-20.0)                          # every step runs
+    b, n = 1, 48
+    mem = memory(fp.dims, b, n, device, seed=7)
+    prev, ctx, hs, cum, fin = fd._zero_carry(fp, b, n, device)
+    d = fp.dims
+    carry_bytes = 4 * b * (d.n_mel + d.d + d.n_gru * d.h + n + 1)
+    res = {}
+    step_ms = cuda_ms(lambda: fd.decode_step(fp, prev, ctx, hs, cum, *mem, fin), 100)
+    step_plain = cuda_ms(lambda: fd.decode_step_plain(fp, prev, ctx, hs, cum, *mem, fin), 100)
+    res['decode_step'] = dict(ms=step_ms, plain_ms=step_plain,
+                              bound=bound(fp, b, n, 1, 2 * carry_bytes))
+    full_ms = cuda_ms(lambda: fd.decode_full(fp, *mem, STEPS), 5)
+    full_plain = cuda_ms(lambda: fd.decode_full_plain(fp, *mem, STEPS), 3, warm=1)
+    res['decode_full'] = dict(ms=full_ms, plain_ms=full_plain,
+                              bound=bound(fp, b, n, STEPS, 0))
+    for k, v in res.items():
+        log(f'  {k}: kernel {v["ms"]:.4f} ms, plain {v["plain_ms"]:.4f} ms, bound '
+            f'{v["bound"][0]:.6f} ms ({v["bound"][1]}) per call, B={b} N={n} bf16 weights'
+            + (f', {STEPS} steps' if k == 'decode_full' else ', one step'))
+    log(f'  decode_step looped over a {STEPS}-step decode: '
+        f'{STEPS * step_ms:.3f} ms kernel, {STEPS * step_plain:.3f} ms plain')
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the main path
+# ---------------------------------------------------------------------------
+
+def stop_bias_near(zs, target: int, margin: float = 0.05):
+    """A stop bias under which each decode whose largest bias-free stop
+    logit per step is one of ``zs`` stops after the same number of steps,
+    the one nearest ``target``.  Until it stops, a decode does not depend on
+    the stop bias, so with bias -c it stops at the first step whose logit
+    reaches c.  c lies halfway between that step's logit and the largest
+    earlier one, where the two are at least ``2 * margin`` apart in every
+    decode, so that rounding cannot move the stop.  Returns (bias, steps)."""
+    best = None
+    for t in range(1, len(zs[0])):
+        lo = max(float(z[:t].max()) for z in zs)
+        hi = min(float(z[t]) for z in zs)
+        if hi - lo >= 2 * margin and (best is None
+                                      or abs(t + 1 - target) < abs(best[1] - target)):
+            best = (-(lo + hi) / 2, t + 1)
+    if best is None:
+        raise RuntimeError('no stop bias gives an unambiguous stop step')
+    return best
+
+
+def stop_head(fd, fp, mem, steps: int) -> torch.Tensor:
+    """Seeded weights have no learned stop.  Stop-projection weights
+    [H+D, r] under which the decode of ``mem`` stops after ``steps`` steps,
+    as a trained model stops at the end of its text.  The head reads the
+    frame projection (weights ``wf @ c``), so that its logit at step t is
+    (frame_t - bf) . c, with ``c`` the minimum-norm solution of
+    (frame_t - bf) . c = t - steps + 1.5 over the first ``steps`` frames of
+    the decode kernel: a ramp that crosses 0 at the last of them.  Until it
+    stops, a decode does not depend on its stop head."""
+    fp.f['bs'].fill_(-1e4)                                  # no stop
+    frames = fd.decode_full(fp, *mem, steps)[0][:, 0].double()
+    f = frames - fp.f['bf'].double()
+    ramp = torch.arange(steps, dtype=torch.float64, device=f.device) - steps + 1.5
+    c = torch.linalg.pinv(f) @ ramp
+    return (fp.w['wf'].double() @ c).float()[:, None].expand(-1, fp.dims.r).contiguous()
+
+
+def plan_requests(fd, synth):
+    """For each request: the number of steps its syllable count takes at
+    ``FRAMES_PER_SYLLABLE``, a stop head for it (``stop_head``), and the
+    stop bias from the stop logits of both the decode kernel and its plain
+    version (the step nearest the target at which both stop unambiguously);
+    then the kernel against the plain version on the request's own encoder
+    memory, with the serving bf16 weights and that head.  Returns
+    {text: ((weights, bias), steps)}."""
+    r = synth.cfg.acoustic.outputs_per_step
+    fp = fd.fold_params(synth.acoustic.decoder_cell)
+    plan, failures = {}, []
+    with torch.no_grad():
+        for text in REQUESTS:
+            enc = synth._encode(text)
+            mem = (enc['keys'], enc['values'], enc['mask'])
+            target = math.ceil(len(text.split()) * FRAMES_PER_SYLLABLE / r)
+            ws = stop_head(fd, fp, mem, target)
+            fp.w['ws'].copy_(ws)
+            zs = [stop_logits(fd, fp, mem, target + 1, decode)[0]
+                  for decode in (fd.decode_full, fd.decode_full_plain)]
+            bias, steps = stop_bias_near(zs, target)
+            fp.f['bs'].fill_(bias)
+            got = fd.fused_decode_full(fp, *mem, synth.max_iters, early_exit=True)
+            ref = fd.to_outputs(fp, *fd.decode_full_plain(
+                fp, *mem, synth.max_iters, early_exit=True))
+            errs = errors(fp, got, ref)
+            lengths = ref['out_lengths'].tolist()
+            log(f'  {len(text.split())} syllables, N={mem[2].shape[1]}: target '
+                f'{target} steps, stops after {steps} (bias {bias:.4f}); decode_full '
+                f'early-exit bf16 vs plain: lengths={lengths} ' + err_text(errs, torch.bfloat16))
+            if lengths != [steps * r] or not within(errs, torch.bfloat16):
+                failures.append(text)
+            plan[text] = ((ws, bias), steps)
+    if failures:
+        raise AssertionError(f'the decode of a request disagrees with its plan: {failures}')
+    return plan
+
+
+def use_stop(synth, head) -> None:
+    """Give the served model the stop head (weights [H+D, r], bias) of the
+    next request."""
+    ws, bias = head
+    synth.decoder.w['ws'].copy_(ws)
+    synth.decoder.f['bs'].fill_(bias)
+    proj = synth.acoustic.decoder_cell.stop_projection
+    proj.weight.copy_(synth.decoder.w['ws'].t())
+    proj.bias.fill_(bias)
+
+
+def check_wav(wav: np.ndarray, hop: int, frames: int) -> None:
+    if not (wav.dtype == np.float32 and wav.shape == (hop * frames,)
+            and np.isfinite(wav).all() and np.abs(wav).max() <= 1.0):
+        raise AssertionError(f'bad wav: {wav.dtype} {wav.shape}, '
+                             f'expected {hop * frames} samples')
+
+
+def main_path(fd, device):
+    from transtacos_retunegan_tpu_torch.serve.httpd import serve
+    from transtacos_retunegan_tpu_torch.serve.pipeline import Synthesizer
+    synth = Synthesizer(device=device)
+    hop, r = synth.cfg.audio.hop_length, synth.cfg.acoustic.outputs_per_step
+    log(f'  default Config, seeded weights, {FRAMES_PER_SYLLABLE:.3f} frames per syllable')
+    plan = plan_requests(fd, synth)
+    for text in REQUESTS:                                 # warm-up
+        use_stop(synth, plan[text][0])
+        check_wav(synth.tts_fused(text), hop, plan[text][1] * r)
+    torch.cuda.synchronize()
+
+    for k in fd.LAUNCHES:
+        fd.LAUNCHES[k] = 0
+    for surface in ('tts_fused', 'tts'):
+        for text in REQUESTS:
+            use_stop(synth, plan[text][0])
+            before = dict(fd.LAUNCHES)
+            t0 = time.perf_counter()
+            wav = getattr(synth, surface)(text)
+            ms = 1e3 * (time.perf_counter() - t0)
+            check_wav(wav, hop, plan[text][1] * r)
+            rose = {k: fd.LAUNCHES[k] - before[k] for k in before}
+            log(f'  {surface}({text!r}): {ms:.2f} ms, {len(wav) // hop} frames, '
+                f'launches {rose}')
+            if rose != {'decode_step': 0, 'decode_full': 1}:
+                raise AssertionError(f'decode_full must rise by one per request: {rose}')
+    # the server's worker thread builds its per-thread caches (cuDNN plans)
+    # on its first request, so three are timed
+    from scipy.io import wavfile
+    use_stop(synth, plan[REQUESTS[1]][0])
+    server = serve(synth, port=0, host='127.0.0.1')
+    try:
+        url = (f'http://127.0.0.1:{server.server_address[1]}/synth?text='
+               + REQUESTS[1].replace(' ', '%20'))
+        for _ in range(3):
+            before = fd.LAUNCHES['decode_full']
+            t0 = time.perf_counter()
+            body = urllib.request.urlopen(url, timeout=300).read()
+            ms = 1e3 * (time.perf_counter() - t0)
+            sr, wav = wavfile.read(io.BytesIO(body))
+            check_wav(wav, hop, plan[REQUESTS[1]][1] * r)
+            if (sr != synth.cfg.audio.sample_rate
+                    or fd.LAUNCHES['decode_full'] != before + 1):
+                raise AssertionError('GET /synth did not go through decode_full')
+            log(f'  GET /synth: {ms:.2f} ms, {len(body)} bytes, '
+                f'{len(wav) // hop} frames')
+    finally:
+        server.shutdown()
+        server.server_close()
+    # a request whose working set exceeds the fit check takes the step kernel
+    use_stop(synth, plan[REQUESTS[0]][0])
+    budget, fd.SMEM_BUDGET_BYTES = fd.SMEM_BUDGET_BYTES, 0
+    try:
+        before = dict(fd.LAUNCHES)
+        t0 = time.perf_counter()
+        wav = synth.tts_fused(REQUESTS[0])
+        ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        fd.SMEM_BUDGET_BYTES = budget
+    check_wav(wav, hop, plan[REQUESTS[0]][1] * r)
+    rose = {k: fd.LAUNCHES[k] - before[k] for k in before}
+    log(f'  tts_fused past the fit check: {ms:.2f} ms, launches {rose}')
+    if rose != {'decode_step': synth.max_iters, 'decode_full': 0}:
+        raise AssertionError(f'the step path must launch decode_step per step: {rose}')
+    launches = dict(fd.LAUNCHES)
+    log(f'  LAUNCHES after the main path: {launches}')
+    return synth, plan, launches
+
+
+def stage_times(synth, plan, text: str, reps: int = 5):
+    """Per-stage time of one tts_fused request (host clock, synchronised
+    after each stage), mean over ``reps`` runs after a warm-up."""
+    from transtacos_retunegan_tpu_torch.audio import dsp
+    from transtacos_retunegan_tpu_torch.models.acoustic import posnet_apply
+    au = synth.cfg.audio
+    acc = {}
+    use_stop(synth, plan[text][0])
+
+    def stage(name, fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        acc[name] = acc.get(name, 0.0) + 1e3 * (time.perf_counter() - t0)
+        return out
+
+    for rep in range(reps + 1):
+        if rep == 1:
+            acc.clear()                                 # drop the warm-up
+        enc = stage('encoder', synth._encode, text)
+        out = stage('decode', synth._decode, enc)
+        mag = stage('posnet', posnet_apply, synth.acoustic, out['mel_outputs'])
+        s = dsp.fix_zero_dc(dsp.spec_to_natural_scale(mag[0].T, au), au)
+        mel, tmpl = stage('gl_template', synth._template, s)
+        stage('generator', synth._generate, mel, tmpl)
+    ms = {k: v / reps for k, v in acc.items()}
+    log('  stages of tts_fused (ms): ' + ', '.join(f'{k} {v:.3f}' for k, v in ms.items())
+        + f'; decode stopped at {int(out["out_lengths"][0]) // synth.cfg.acoustic.outputs_per_step}'
+        f' of {synth.max_iters} steps')
+    return ms
+
+
+def request_latency(synth, plan, n: int = 20):
+    """Host-clock time of ``n`` back-to-back tts_fused requests of each
+    text, each ending with its wav on the host: median and quartiles, and
+    the real-time factor (median time over the wav's duration)."""
+    for text in REQUESTS:
+        use_stop(synth, plan[text][0])
+        ms = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            wav = synth.tts_fused(text)
+            ms.append(1e3 * (time.perf_counter() - t0))
+        q1, med, q3 = np.percentile(ms, [25, 50, 75])
+        secs = len(wav) / synth.cfg.audio.sample_rate
+        log(f'  tts_fused, {len(text.split())} syllables, {plan[text][1]} steps, '
+            f'x{n}: median {med:.3f} ms (quartiles {q1:.3f}, {q3:.3f}), '
+            f'{secs:.3f} s of audio, RTF {med / 1e3 / secs:.5f}')
+
+
+def thread_cost(synth, plan, text: str, n: int = 3):
+    """``tts`` on this thread and on a fresh thread per call.  PyTorch keeps
+    some caches per thread (cuDNN's execution plans among them), which is
+    why the HTTP server runs all work on the card on one worker thread."""
+    def timed(out):
+        t0 = time.perf_counter()
+        synth.tts(text)
+        out.append(1e3 * (time.perf_counter() - t0))
+    use_stop(synth, plan[text][0])
+    here, fresh = [], []
+    for _ in range(n):
+        timed(here)
+    for _ in range(n):
+        th = threading.Thread(target=timed, args=(fresh,))
+        th.start()
+        th.join()
+    log(f'  tts({text!r}) ms on this thread {[round(x, 2) for x in here]}, '
+        f'on a fresh thread each {[round(x, 2) for x in fresh]}')
+
+
+def slice_against_cpu(device):
+    """The whole slice at a small width: the wav on the card against the
+    same Synthesizer on the CPU (plain decode), float32 throughout, the
+    same seeded weights and Griffin-Lim phase."""
+    from transtacos_retunegan_tpu_torch.config import Config
+    from transtacos_retunegan_tpu_torch.ops.fused_decoder import fold_params
+    from transtacos_retunegan_tpu_torch.serve.pipeline import Synthesizer
+    base = Config()
+    cfg = dataclasses.replace(
+        base,
+        acoustic=dataclasses.replace(
+            base.acoustic, embed_depth=32, encoder_depth=32, decoder_depth=64,
+            attention_depth=16, prenet_depths=(32,), posnet_depth=64,
+            var_embed_depth=16, var_prednet_depth=16, prdsnet_depth=16,
+            posenc_depth=8, max_iters=8),
+        vocoder=dataclasses.replace(base.vocoder, upsample_initial_channel=64))
+    kw = dict(infer_dtype='float32')
+    gpu, cpu = Synthesizer(cfg, device=device, **kw), Synthesizer(cfg, device='cpu', **kw)
+    for s in (gpu, cpu):                  # decode every step on both
+        s.acoustic.decoder_cell.stop_projection.bias.fill_(-20.0)
+        s.decoder = fold_params(s.acoustic.decoder_cell, torch.float32)
+    frames = cfg.acoustic.max_iters * cfg.acoustic.outputs_per_step
+    theta = 2 * math.pi * torch.rand(cfg.audio.n_freq, frames,
+                                     generator=torch.Generator().manual_seed(SEED))
+    a = gpu.tts_fused(REQUESTS[0], theta=theta.to(device))
+    b = cpu.tts_fused(REQUESTS[0], theta=theta)
+    err = float(np.abs(a - b).max())
+    log(f'  small config, card vs CPU: wav {a.shape}, max abs diff {err:.2e} '
+        f'(tol {SLICE_TOL:.0e})')
+    if a.shape != b.shape or not err <= SLICE_TOL:
+        raise AssertionError('the slice on the card disagrees with the CPU')
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device', file=sys.stderr)
+        return 1
+    from transtacos_retunegan_tpu_torch.ops import build
+    from transtacos_retunegan_tpu_torch.ops import fused_decoder as fd
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device('cuda')
+    t_start = time.perf_counter()
+
+    log('== phase 1: card and build')
+    card = card_line()
+    log(card)
+    log(f'torch {torch.__version__} cuda {torch.version.cuda} '
+        f'device {torch.cuda.get_device_name(0)}')
+    t0 = time.perf_counter()
+    for name, report in build.build_all(build.sources()).items():
+        log(f'-- nvcc {name}.cu')
+        log(report.strip())
+    log(f'  built in {time.perf_counter() - t0:.1f} s')
+
+    log('== phase 2: kernels against their plain versions, full width')
+    worst = compare_kernels(fd, device)
+
+    log('== phase 3: timing (CUDA events)')
+    times = time_kernels(fd, device)
+
+    log('== phase 4: main path (Synthesizer on the card)')
+    synth, plan, launches = main_path(fd, device)
+    if not all(launches[k] > 0 for k in launches):
+        raise AssertionError(f'a kernel of the path was not launched: {launches}')
+    stage_times(synth, plan, REQUESTS[-1])
+    request_latency(synth, plan)
+    thread_cost(synth, plan, REQUESTS[1])
+    slice_against_cpu(device)
+
+    replaces = {'decode_step': 'transtacos_retunegan_tpu/ops/fused_decoder.py:273',
+                'decode_full': 'transtacos_retunegan_tpu/ops/fused_decoder.py:402'}
+    record = {'kernels': [
+        {'name': k, 'route': 'cuda',
+         'source': 'transtacos_retunegan_tpu_torch/csrc/fused_decoder.cu',
+         'replaces': replaces[k], 'launches': launches[k],
+         'max_abs_err': worst[k], 'ms': times[k]['ms'],
+         'plain_ms': times[k]['plain_ms'], 'bound_ms': times[k]['bound'][0],
+         'bound_by': times[k]['bound'][1], 'library_ms': None}
+        for k in ('decode_step', 'decode_full')]}
+    log(f'total {time.perf_counter() - t_start:.1f} s')
+    log(card)
+    log(json.dumps(record))
+    log(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

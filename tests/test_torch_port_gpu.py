@@ -1,0 +1,143 @@
+"""The CUDA decode kernels against their plain PyTorch versions on the card.
+
+Every test here is marked ``gpu`` and skips without a CUDA device; on a
+machine with one run
+``python -m pytest -m gpu --noconftest tests/test_torch_port_gpu.py`` (the
+repo's ``tests/conftest.py`` imports JAX, which the port does not need).
+Whether a card is present is decided inside the fixture, never at import.
+
+Tolerances: float32 weights 1e-4 absolute (six steps of float32 sums taken
+in another order than PyTorch's); bf16 weights 1e-2, since both sides round
+the same operands to bf16 but a different sum order can flip one rounding.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from transtacos_retunegan_tpu_torch.config import Config
+from transtacos_retunegan_tpu_torch.models.decoder import DecoderCell
+from transtacos_retunegan_tpu_torch.ops import fused_decoder as fd
+from transtacos_retunegan_tpu_torch.weights import seeded_init
+
+pytestmark = pytest.mark.gpu
+
+B, N, STEPS = 2, 24, 6
+TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device('cuda')
+
+
+def _cfg():
+    base = Config()
+    return dataclasses.replace(base, acoustic=dataclasses.replace(
+        base.acoustic, decoder_depth=64, attention_depth=16, prenet_depths=(48, 32),
+        decoder_layers=3, encoder_depth=32))
+
+
+def _problem(device, dtype, stop_bias=-20.0):
+    cell = seeded_init(DecoderCell(_cfg()), 3)
+    g = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for name, p in cell.named_parameters():
+            if name.endswith('bias'):
+                p.copy_(0.3 * torch.randn(p.shape, generator=g))
+        cell.stop_projection.bias.fill_(stop_bias)
+    fp = fd.fold_params(cell.to(device), dtype)
+    r = np.random.RandomState(5)
+    mask = (np.arange(N)[None] < np.asarray([N, N - 5])[:, None]).astype(np.float32)
+    mem = (0.3 * r.randn(B, N, 16), 0.3 * r.randn(B, N, 32) * mask[..., None], mask)
+    return fp, tuple(torch.tensor(x, dtype=torch.float32, device=device) for x in mem)
+
+
+def _close(got, ref, dtype):
+    assert torch.equal(got['out_lengths'], ref['out_lengths'])
+    for k in ('mel_outputs', 'stop_token_outputs', 'alignments'):
+        assert float((got[k] - ref[k]).abs().max()) <= TOL[dtype], k
+
+
+@pytest.mark.parametrize('early_exit', [False, True])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_decode_full_kernel_matches_plain(cuda, dtype, early_exit):
+    fp, mem = _problem(cuda, dtype)
+    before = fd.LAUNCHES['decode_full']
+    got = fd.fused_decode_full(fp, *mem, STEPS, early_exit=early_exit)
+    assert fd.LAUNCHES['decode_full'] == before + 1
+    ref = fd.to_outputs(fp, *fd.decode_full_plain(fp, *mem, STEPS, early_exit))
+    _close(got, ref, dtype)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_decode_step_kernel_matches_plain(cuda, dtype):
+    """One step from a non-zero carry with one row already finished: the
+    finished row still emits stop/align and holds its carry."""
+    fp, mem = _problem(cuda, dtype)
+    g = torch.Generator().manual_seed(6)
+    d = fp.dims
+    rnd = lambda *s: torch.randn(*s, generator=g).to(cuda)      # noqa: E731
+    prev, ctx, cum = rnd(B, d.n_mel), rnd(B, d.d), rnd(B, N).abs()
+    hs = tuple(rnd(B, d.h) for _ in range(d.n_gru))
+    fin = torch.tensor([[0.0], [1.0]], device=cuda)
+    before = fd.LAUNCHES['decode_step']
+    (outs, hs_k) = fd.decode_step(fp, prev, ctx, hs, cum, *mem, fin)
+    assert fd.LAUNCHES['decode_step'] == before + 1
+    (refs, hs_p) = fd.decode_step_plain(fp, prev, ctx, hs, cum, *mem, fin)
+    for a, b in zip(outs + hs_k, refs + hs_p):
+        assert float((a - b).abs().max()) <= TOL[dtype]
+
+
+def test_step_path_launches_once_per_step(cuda, monkeypatch):
+    fp, mem = _problem(cuda, torch.float32)
+    monkeypatch.setattr(fd, 'SMEM_BUDGET_BYTES', 0)
+    before = dict(fd.LAUNCHES)
+    got = fd.fused_decode_full(fp, *mem, STEPS, early_exit=True)
+    assert fd.LAUNCHES['decode_step'] == before['decode_step'] + STEPS
+    assert fd.LAUNCHES['decode_full'] == before['decode_full']
+    _close(got, fd.to_outputs(fp, *fd.decode_full_plain(fp, *mem, STEPS)), torch.float32)
+
+
+def test_early_exit_after_stops(cuda):
+    fp, mem = _problem(cuda, torch.float32, stop_bias=0.0)
+    ref = fd.to_outputs(fp, *fd.decode_full_plain(fp, *mem, STEPS, True))
+    _close(fd.fused_decode_full(fp, *mem, STEPS, early_exit=True), ref, torch.float32)
+
+
+def test_wrapper_rejects_bad_operands(cuda):
+    fp, (keys, values, mask) = _problem(cuda, torch.float32)
+    with pytest.raises(ValueError, match='contiguous'):
+        fd.decode_full(fp, keys.transpose(0, 1).contiguous().transpose(0, 1),
+                       values, mask, STEPS)
+    with pytest.raises(ValueError, match='shape'):
+        fd.decode_full(fp, keys[:, :, :8].contiguous(), values, mask, STEPS)
+    prev, ctx, hs, cum, fin = fd._zero_carry(fp, B, N, cuda)
+    with pytest.raises(ValueError, match='prev has shape'):
+        fd.decode_step(fp, prev[:, :8].contiguous(), ctx, hs, cum, keys, values,
+                       mask, fin)
+    with pytest.raises(ValueError, match='GRU states'):
+        fd.decode_step(fp, prev, ctx, hs[:1], cum, keys, values, mask, fin)
+
+
+def test_synthesizer_on_the_card(cuda):
+    from transtacos_retunegan_tpu_torch.serve.pipeline import Synthesizer
+    base = Config()
+    cfg = dataclasses.replace(
+        base, acoustic=dataclasses.replace(
+            base.acoustic, embed_depth=32, encoder_depth=32, decoder_depth=64,
+            attention_depth=16, prenet_depths=(32,), posnet_depth=64,
+            var_embed_depth=16, var_prednet_depth=16, prdsnet_depth=16,
+            posenc_depth=8, max_iters=8),
+        vocoder=dataclasses.replace(base.vocoder, upsample_initial_channel=64))
+    synth = Synthesizer(cfg)
+    before = fd.LAUNCHES['decode_full']
+    wav = synth.tts_fused('ni3 hao3')
+    assert fd.LAUNCHES['decode_full'] == before + 1
+    assert wav.dtype == np.float32 and len(wav) > 0 and np.isfinite(wav).all()

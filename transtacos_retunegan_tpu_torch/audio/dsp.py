@@ -1,0 +1,196 @@
+"""STFT / iSTFT / Griffin-Lim / companding in PyTorch, ported from
+``transtacos_retunegan_tpu/audio/dsp.py``.
+
+The JAX package writes the (i)STFT as windowed-DFT matmuls because its
+target had no FFT; here ``torch.stft`` and ``torch.fft.irfft`` do that work.
+Conventions are unchanged: librosa/torch ``center=True`` with reflect
+padding, ``n_frames = 1 + T // hop``, waveforms ``[..., T]`` and
+spectrograms ``[..., F, n_frames]``.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from . import mel as melmod
+from ..config import AudioConfig
+
+EPS_AMP = 1e-5
+
+
+@functools.lru_cache(maxsize=16)
+def _padded_window(kind: str, win_length: int, n_fft: int) -> np.ndarray:
+    """Analysis window center-padded to n_fft (librosa pad_center)."""
+    w = melmod.window(kind, win_length)
+    lpad = (n_fft - win_length) // 2
+    return np.pad(w, (lpad, n_fft - win_length - lpad)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=32)
+def _ola_norm(n_frames: int, n_fft: int, hop_length: int, win_length: int,
+              window: str) -> np.ndarray:
+    """Sum of squared windows over the overlap-add span, with the JAX
+    package's guard: entries at or below 1e-11 become 1."""
+    w2 = _padded_window(window, win_length, n_fft).astype(np.float64) ** 2
+    acc = np.zeros(n_fft + hop_length * (n_frames - 1))
+    for i in range(n_frames):
+        acc[i * hop_length:i * hop_length + n_fft] += w2
+    return np.where(acc > 1e-11, acc, 1.0).astype(np.float32)
+
+
+def _window(kind: str, win_length: int, n_fft: int, like: torch.Tensor):
+    return torch.from_numpy(_padded_window(kind, win_length, n_fft)).to(
+        like.device)
+
+
+def stft(y: torch.Tensor, n_fft: int, hop_length: int, win_length: int,
+         window: str = 'hann') -> torch.Tensor:
+    """Complex STFT ``[..., T] -> [..., n_fft//2+1, n_frames]``."""
+    lead = y.shape[:-1]
+    s = torch.stft(y.reshape(-1, y.shape[-1]), n_fft, hop_length,
+                   window=_window(window, win_length, n_fft, y),
+                   center=True, pad_mode='reflect', return_complex=True)
+    return s.reshape(lead + s.shape[-2:])
+
+
+def stft_ri(y: torch.Tensor, n_fft: int, hop_length: int, win_length: int,
+            window: str = 'hann') -> Tuple[torch.Tensor, torch.Tensor]:
+    """STFT as a (real, imag) pair, each ``[..., F, n_frames]``."""
+    s = stft(y, n_fft, hop_length, win_length, window)
+    return s.real, s.imag
+
+
+def istft(spec: torch.Tensor, hop_length: int, win_length: int,
+          window: str = 'hann', length: Optional[int] = None) -> torch.Tensor:
+    """Inverse of ``stft``: synthesis window, overlap-add, division by the
+    window-square envelope, centre trim.  Default length
+    ``hop * (n_frames - 1)``."""
+    n_fft = 2 * (spec.shape[-2] - 1)
+    nf = spec.shape[-1]
+    lead = spec.shape[:-2]
+    frames = torch.fft.irfft(spec.reshape((-1,) + spec.shape[-2:]).transpose(1, 2),
+                             n=n_fft)                              # [b, T, n_fft]
+    frames = frames * _window(window, win_length, n_fft, frames)
+    total = n_fft + hop_length * (nf - 1)
+    out = F.fold(frames.transpose(1, 2), (1, total), (1, n_fft),
+                 stride=(1, hop_length))[:, 0, 0]                  # [b, total]
+    norm = _ola_norm(nf, n_fft, hop_length, win_length, window)
+    out = out / torch.from_numpy(norm).to(out.device)
+    if length is None:
+        length = hop_length * (nf - 1)
+    out = out[:, n_fft // 2:n_fft // 2 + length]
+    return out.reshape(lead + out.shape[-1:])
+
+
+def istft_ri(re: torch.Tensor, im: torch.Tensor, hop_length: int,
+             win_length: int, window: str = 'hann',
+             length: Optional[int] = None) -> torch.Tensor:
+    return istft(torch.complex(re, im), hop_length, win_length, window, length)
+
+
+def griffin_lim(mag: torch.Tensor, n_iter: int, hop_length: int,
+                win_length: int, window: str = 'hann', momentum: float = 0.0,
+                length: Optional[int] = None,
+                theta: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Phase reconstruction ``[..., F, n_frames] -> [..., T]``.
+
+    The initial phase is ``theta`` (radians, the shape of ``mag``) when
+    given, else ``2*pi*U[0, 1)`` drawn from ``generator`` on mag's device.
+    ``momentum=0`` is the plain alternating projection; ``0.7`` is the fast
+    flavour used for the vocoder template.
+    """
+    mag = mag.abs()
+    n_fft = 2 * (mag.shape[-2] - 1)
+    if theta is None:
+        theta = 2.0 * np.pi * torch.rand(mag.shape, generator=generator,
+                                         device=mag.device)
+    p = torch.polar(torch.ones_like(mag), theta.to(mag))
+    alpha = momentum / (1.0 + momentum)
+    t = torch.zeros_like(p)
+    for _ in range(n_iter):
+        y = istft(mag * p, hop_length, win_length, window, length)
+        rebuilt = stft(y, n_fft, hop_length, win_length, window)
+        u = rebuilt - alpha * t
+        p = u / (u.abs() + 1e-16)
+        t = rebuilt
+    return istft(mag * p, hop_length, win_length, window, length)
+
+
+def preemphasis(y: torch.Tensor, k: float = 0.97) -> torch.Tensor:
+    """``y[i] - k * y[i-1]``."""
+    return y - k * F.pad(y, (1, 0))[..., :-1]
+
+
+def inv_preemphasis(y: torch.Tensor, k: float = 0.97) -> torch.Tensor:
+    """IIR inverse ``o[i] = y[i] + k * o[i-1]`` as a log-depth
+    (Hillis-Steele) scan: after the pass at offset 2^s every sample holds
+    the sum of its last 2^(s+1) inputs weighted by powers of k."""
+    out, p, off, n = y, k, 1, y.shape[-1]
+    while off < n:
+        out = out + p * F.pad(out, (off, 0))[..., :n]
+        p, off = p * p, off * 2
+    return out
+
+
+def amp_to_db(x: torch.Tensor) -> torch.Tensor:
+    return 20.0 * torch.log10(torch.clamp(x, min=EPS_AMP))
+
+
+def db_to_amp(x: torch.Tensor) -> torch.Tensor:
+    return torch.pow(10.0, x * 0.05)
+
+
+def normalize_db(s: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
+    return (2 * cfg.max_abs_value * ((s - cfg.min_level_db) / -cfg.min_level_db)
+            - cfg.max_abs_value)
+
+
+def denormalize_db(s: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
+    return (((s + cfg.max_abs_value) * -cfg.min_level_db) / (2 * cfg.max_abs_value)
+            + cfg.min_level_db)
+
+
+def spec_to_natural_scale(spec: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
+    """Normalised model scale -> raw |STFT| scale."""
+    return db_to_amp(denormalize_db(spec, cfg) + cfg.ref_level_db)
+
+
+def fix_zero_dc(s: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
+    """Re-prepend a near-zero DC row if it was dropped."""
+    if s.shape[-2] == cfg.n_freq - 1:
+        dc = s.amin(dim=(-2, -1), keepdim=True) * 1e-2
+        dc = dc.expand(s.shape[:-2] + (1, s.shape[-1]))
+        s = torch.cat([dc, s], dim=-2)
+    return s
+
+
+def mel_basis(cfg: AudioConfig, device) -> torch.Tensor:
+    return torch.from_numpy(melmod.mel_basis(
+        cfg.sample_rate, cfg.n_fft, cfg.n_mel, cfg.fmin, cfg.fmax,
+        htk=cfg.mel_scale == 'htk')).to(device)
+
+
+def mag_to_mel(mag_natural: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
+    """Natural-scale |STFT| ``[..., F, T]`` -> natural-scale mel."""
+    return torch.einsum('mf,...ft->...mt', mel_basis(cfg, mag_natural.device),
+                        mag_natural)
+
+
+def inv_log_mag(log_mag: torch.Tensor, cfg: AudioConfig,
+                length: Optional[int] = None,
+                theta: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """log-magnitude -> waveform through the fast Griffin-Lim (4 iterations,
+    momentum 0.7): exp, a zero DC row if dropped, power law, length bound."""
+    s = torch.exp(log_mag)
+    if s.shape[-2] == cfg.n_freq - 1:
+        s = torch.cat([torch.zeros_like(s[..., :1, :]), s], dim=-2)
+    return griffin_lim(s ** cfg.gl_power, cfg.gl_iters_vocoder, cfg.hop_length,
+                       cfg.win_length, cfg.window_fn, momentum=cfg.gl_momentum,
+                       length=length, theta=theta, generator=generator)

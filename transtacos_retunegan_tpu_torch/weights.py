@@ -1,0 +1,137 @@
+"""Weight bridge: flax param trees (numpy leaves) -> the port's modules.
+
+The port's modules name their children after the flax modules, so a flax
+path ``a/b/kernel`` becomes the state-dict key ``a.b.weight``.  Layouts are
+converted per leaf kind:
+
+* Dense ``kernel [in, out]``             -> ``weight [out, in]``
+* Conv ``kernel [k, in/g, out]``         -> ``weight [out, in/g, k]``
+* WNConv ``v [k, in/g, out]``            -> ``v [out, in/g, k]``
+* WNConvTranspose ``v [k, in, out]``     -> ``v [in, out, k]``
+* everything else (biases, ``g``/``b``, embeddings, ``attention_variable``,
+  the shared ``noise/w``) is copied as is.
+
+``from_flax`` raises unless every leaf lands on a parameter of the module
+and every parameter receives a leaf of its shape.  Trees travel between
+the packages as ``.npz`` files keyed by ``/``-joined paths (``save_npz`` /
+``load_npz``), so weights reach the card without JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from .models.vocoder_layers import WNConvTranspose
+
+
+def flatten(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()
+            ) -> Dict[Tuple[str, ...], np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict) or hasattr(v, 'items'):
+            out.update(flatten(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = np.asarray(v)
+    return out
+
+
+def _convert(module: nn.Module, path: Tuple[str, ...],
+             leaf: np.ndarray) -> Tuple[str, np.ndarray]:
+    name = path[-1]
+    if name == 'kernel':
+        name = 'weight'
+        leaf = leaf.T if leaf.ndim == 2 else leaf.transpose(2, 1, 0)
+    elif name == 'v' and leaf.ndim == 3:
+        try:
+            owner = module.get_submodule('.'.join(path[:-1]))
+        except AttributeError:
+            owner = None                  # reported as unconsumed below
+        transposed = isinstance(owner, WNConvTranspose)
+        leaf = leaf.transpose(1, 2, 0) if transposed else leaf.transpose(2, 1, 0)
+    return '.'.join(path[:-1] + (name,)), leaf
+
+
+def from_flax(module: nn.Module, tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax param tree -> state dict of ``module`` (float32, CPU)."""
+    expect = module.state_dict()
+    state, bad_shape = {}, []
+    for path, leaf in flatten(tree).items():
+        key, arr = _convert(module, path, leaf)
+        state[key] = torch.tensor(arr, dtype=torch.float32)
+        if key in expect and tuple(expect[key].shape) != tuple(arr.shape):
+            bad_shape.append(f'{"/".join(path)}: {tuple(arr.shape)} -> '
+                             f'{key} {tuple(expect[key].shape)}')
+    faults = [f'{what}: {keys}' for what, keys in (
+        ('missing', sorted(set(expect) - set(state))),
+        ('unconsumed', sorted(set(state) - set(expect))),
+        ('shape mismatch', bad_shape)) if keys]
+    if faults:
+        raise ValueError(f'flax tree does not fit {type(module).__name__}; '
+                         + '; '.join(faults))
+    return state
+
+
+def load_flax(module: nn.Module, tree: Dict[str, Any]) -> nn.Module:
+    """Copy a flax tree into ``module`` in place (on the module's device)."""
+    module.load_state_dict(from_flax(module, tree), strict=True)
+    return module
+
+
+def save_npz(path: str, tree: Dict[str, Any]) -> None:
+    np.savez(path, **{'/'.join(k): v for k, v in flatten(tree).items()})
+
+
+def load_npz(path: str) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    with np.load(path) as z:
+        for key in z.files:
+            node = tree
+            *parents, leaf = key.split('/')
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = z[key]
+    return tree
+
+
+@torch.no_grad()
+def seeded_init(module: nn.Module, seed: int) -> nn.Module:
+    """Random weights from ``seed``, drawn on the CPU (the same on every
+    device) with the JAX package's initialiser families: lecun-normal
+    denses and convs, orthogonal GRU hidden kernels, zero biases,
+    truncated-normal(0.5) embeddings, kaiming-normal (leaky slope 0.15)
+    weight-norm directions with the matching gain ``g``."""
+    gen = torch.Generator().manual_seed(seed)
+    slope_gain = 2.0 / (1.0 + 0.15 ** 2)
+    for name, p in module.named_parameters():
+        leaf = name.rsplit('.', 1)[-1]
+        parent = name.rsplit('.', 2)[-2] if name.count('.') >= 1 else ''
+        shape = p.shape
+        if leaf in ('bias', 'b', 'attention_bias'):
+            val = torch.zeros(shape)
+        elif leaf == 'g':
+            val = torch.full(shape, slope_gain ** 0.5)
+        elif leaf == 'w':
+            val = torch.full(shape, 1e-6)
+        elif leaf.startswith('E_'):
+            val = (torch.randn(shape, generator=gen) * 0.5).clamp(-1.0, 1.0)
+        elif leaf == 'attention_variable':
+            lim = (6.0 / (shape[0] + shape[1])) ** 0.5
+            val = (torch.rand(shape, generator=gen) * 2 - 1) * lim
+        elif leaf == 'v':
+            transposed = parent.startswith('WNConvTranspose')
+            fan_in = shape[0] * shape[2] if transposed else shape[1] * shape[2]
+            val = torch.randn(shape, generator=gen) * (slope_gain / fan_in) ** 0.5
+        elif leaf == 'weight' and parent in ('hr', 'hz', 'hn'):
+            q, _ = torch.linalg.qr(torch.randn(shape, generator=gen))
+            val = q
+        elif leaf == 'weight':
+            fan_in = shape[1] * (shape[2] if p.ndim == 3 else 1)
+            val = torch.randn(shape, generator=gen) / fan_in ** 0.5
+        else:
+            raise ValueError(f'no initialiser for {name}')
+        p.copy_(val)
+    return module
