@@ -9,24 +9,35 @@ exit:
 1. The card's name and power limit (``nvidia-smi``), then the build of every
    CUDA source in ``transtacos_retunegan_tpu_torch/csrc`` with the
    ``-Xptxas -v`` report (registers, shared memory, spills).
-2. Each decode kernel against its plain PyTorch version at the full default
-   width (H=512, A=128, D=256, r=5, M=80, 2 GRUs, prenet 256), N in {48, 128},
-   B in {1, 4}, 300 steps, float32 and bf16 weights: ``decode_step`` looped,
-   ``decode_full`` with and without early exit; every case without a stop,
-   and the B=4 cases again with rows that stop at different steps.
-3. Timing with CUDA events after warm-up at B=1, N=48, 300 steps, beside the
-   bound computed from the shapes.
-4. The main path: ``Synthesizer(device='cuda')`` at the default ``Config()``
-   with seeded weights.  Each request gets a stop head under which it
-   stops after the steps its syllables take at the training corpus's
-   speaking rate, and its decode on the card is held to the plain version
-   on its own encoder memory.  Then, with the launch counters set to 0 just
-   before and read just after, it answers ``tts_fused`` and ``tts``
-   requests and three ``GET /synth`` through the HTTP server; one request
-   is made to exceed the shared-memory fit check so that it takes the
-   per-step kernel.  Then the per-stage time of one request, the latency of
-   each request, and the wav of a small configuration on the card against
-   the same ``Synthesizer`` on the CPU.
+2. Each kernel against its plain PyTorch version.  The decode kernels at
+   the full default width (H=512, A=128, D=256, r=5, M=80, 2 GRUs, prenet
+   256), N in {48, 128}, B in {1, 4}, 300 steps, float32 and bf16 weights:
+   ``decode_step`` looped, ``decode_full`` with and without early exit;
+   every case without a stop, and the B=4 cases again with rows that stop
+   at different steps.  The LSA step at the JAX test's shape and the
+   decoder's serving shapes, with short texts and an all-masked row.
+3. Timing with CUDA events after warm-up (decode at B=1, N=48, 300 steps;
+   LSA step at B=8, N=64), beside the bound computed from the shapes.
+4. The main path one request at a time: ``Synthesizer(device='cuda')`` at
+   the default ``Config()`` with seeded weights.  Each request gets a stop
+   head under which it stops after the steps its syllables take at the
+   training corpus's speaking rate, and its decode on the card is held to
+   the plain version on its own encoder memory.  Then, with the launch
+   counters set to 0 just before and read just after, it answers
+   ``tts_fused`` and ``tts`` requests and three ``GET /synth`` through the
+   HTTP server; one request is made to exceed the shared-memory fit check
+   so that it takes the per-step kernel.
+5. The batched path the app serves by default: 8 texts in one text bucket
+   with one stop head under which each stops at its own step.  With the
+   counters at 0, ``tts_batch`` answers cohorts of 1, 2, 4 and 8 texts (one
+   ``decode_full`` launch each) and the batching server answers 8
+   concurrent and 8 serial ``GET /synth``, each concurrent wav bit-identical
+   to its serial one.  Before that run, each cohort's decode is held to the
+   plain version and to its rows decoded alone (bit-identical), and each
+   stage's dependence on its batch shape is measured.
+6. The per-stage time of one request, the latency of each request, the
+   cost of a fresh thread, and the wav of a small configuration on the card
+   against the same ``Synthesizer`` on the CPU.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
@@ -74,6 +85,25 @@ OUTPUTS = ('mel', 'stop', 'align')
 TOL = {torch.float32: {'mel': 1e-3, 'stop': 1e-3, 'align': 1e-3},
        torch.bfloat16: {'mel': 5e-2, 'stop': 5e-2, 'align': 1e-1}}
 SLICE_TOL = 1e-3                       # card vs CPU wav, small config, float32
+# The batched path: 8 distinct texts in one text bucket (16 ids), of 1 to 5
+# syllables; cohorts of 1, 2, 4 and 8 are their prefixes, up to the app's
+# default --max_batch 8.
+BATCH_TEXTS = ('ni3 hao3 shi4 jie4', 'da4 jia1 hao3', 'yi1 er4 san1 si4 wu3',
+               'xie4 xie5', 'wo3 men5 yi4 qi3', 'wo3 ai4 ni3', 'ma1 ma5 ai4 wo3 a1', 'a1')
+COHORTS = (1, 2, 4, 8)
+BATCH_REPS = 5
+# Concurrent against serial GET /synth: bit-identical.  cuBLAS and cuDNN
+# pick their algorithms by shape, so a row's result depends on the batch
+# shape it ran in, and the bf16 decode and generator carry a last-bit
+# difference into the wav (phase 5 measures both); the batching frontend
+# therefore runs both stages of every cohort at max_batch rows.
+# The LSA step (B, N, A, D, kwin): the JAX test's shape, then the decoder's
+# serving shapes, B in {1, 8} and N in {16, 64}, and a 5-tap window.
+LSA_CASES = ((4, 128, 128, 256, 31), (1, 16, 128, 256, 31), (1, 64, 128, 256, 31),
+             (8, 16, 128, 256, 31), (8, 64, 128, 256, 31), (8, 64, 128, 256, 5))
+LSA_TIMED = (8, 64, 128, 256, 31)
+# tests/test_ops.py's bounds on (align, cum, ctx); float32 sums in another order
+LSA_TOL = (1e-5, 1e-5, 1e-4)
 
 
 def log(*args):
@@ -319,6 +349,77 @@ def time_kernels(fd, device):
 
 
 # ---------------------------------------------------------------------------
+# phases 2-3: the LSA step kernel (no path of the system calls it)
+# ---------------------------------------------------------------------------
+
+def lsa_inputs(device, b: int, n: int, a: int, d: int, kwin: int, seed: int):
+    """``tests/test_ops.py``'s LSA inputs; text lengths fall from N in the
+    first row to 0 (every position masked) in the last, or N - 3 for B=1."""
+    r = np.random.RandomState(seed)
+    lens = np.rint(n * (1 - np.arange(b) / (b - 1))) if b > 1 else [n - 3]
+    mask = (np.arange(n)[None] < np.asarray(lens)[:, None]).astype(np.float64)
+    xs = (r.randn(b, a), np.abs(r.randn(b, n)), 0.1 * r.randn(b, n, a),
+          r.randn(b, n, d), mask, 0.05 * r.randn(kwin, a), 0.1 * r.randn(a),
+          0.01 * r.randn(a))
+    return [torch.tensor(x, dtype=torch.float32, device=device) for x in xs]
+
+
+def compare_lsa(lk, device):
+    """lsa_step against lsa_step_plain at the JAX test's shape and the
+    decoder's serving shapes; returns the largest absolute difference."""
+    worst, failures = 0.0, []
+    for b, n, a, d, kwin in LSA_CASES:
+        args = lsa_inputs(device, b, n, a, d, kwin, seed=b * n + kwin)
+        got = lk.lsa_step_fused(*args)
+        ref = lk.lsa_step_plain(*args)
+        torch.cuda.synchronize()
+        errs = [float((g - r).abs().max()) for g, r in zip(got, ref)]
+        ok = all(e <= tol for e, tol in zip(errs, LSA_TOL))
+        if b > 1:           # the all-masked row: zeros, as the Pallas kernel gives
+            ok = ok and not got[0][-1].any() and not got[2][-1].any()
+        worst = max([worst] + errs)
+        log(f'  lsa_step B={b} N={n:3d} A={a} D={d} kwin={kwin:2d}: align {errs[0]:.2e}, '
+            f'cum {errs[1]:.2e}, ctx {errs[2]:.2e} (tol {LSA_TOL[0]:.0e}, {LSA_TOL[1]:.0e}, '
+            f'{LSA_TOL[2]:.0e}) {"ok" if ok else "FAIL"}')
+        if not ok:
+            failures.append((b, n, kwin))
+    if failures:
+        raise AssertionError(f'lsa_step disagrees with its plain version: {failures}')
+    return worst
+
+
+def lsa_bound(b: int, n: int, a: int, d: int, kwin: int):
+    """Least time of one LSA step on the card: inputs read once and outputs
+    written once (float32) over the memory rate, or the float32 operations
+    (window stencil, energy, softmax, context) over the peak rate."""
+    io_bytes = 4 * (b * a + b * n * (a + d + 2) + kwin * a + 2 * a    # inputs
+                    + b * (2 * n + d))                                 # outputs
+    ops = b * n * (2 * kwin * a + 6 * a + 2 * d + 5)
+    t_bytes, t_ops = io_bytes / HBM_BYTES_PER_S, ops / PEAK_OPS[torch.float32]
+    return (1e3 * max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations')
+
+
+def time_lsa(lk, device):
+    """Per call through the wrapper, as a caller pays it; and the launch
+    alone, captured once in a CUDA graph and replayed, without the
+    wrapper's host work (checks, allocations, the ctypes call)."""
+    b, n, a, d, kwin = LSA_TIMED
+    args = lsa_inputs(device, b, n, a, d, kwin, seed=7)
+    res = dict(ms=cuda_ms(lambda: lk.lsa_step_fused(*args), 200, warm=5),
+               plain_ms=cuda_ms(lambda: lk.lsa_step_plain(*args), 200, warm=5),
+               bound=lsa_bound(b, n, a, d, kwin))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        lk.lsa_step_fused(*args)
+    replay_ms = cuda_ms(graph.replay, 200, warm=5)
+    log(f'  lsa_step: kernel {res["ms"]:.4f} ms, plain {res["plain_ms"]:.4f} ms, bound '
+        f'{res["bound"][0]:.6f} ms ({res["bound"][1]}) per call, B={b} N={n} A={a} '
+        f'D={d} kwin={kwin}; the launch alone, replayed from a CUDA graph: '
+        f'{replay_ms:.4f} ms')
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 
@@ -342,19 +443,22 @@ def stop_bias_near(zs, target: int, margin: float = 0.05):
     return best
 
 
-def stop_head(fd, fp, mem, steps: int) -> torch.Tensor:
+def stop_head(fd, fp, mem, targets) -> torch.Tensor:
     """Seeded weights have no learned stop.  Stop-projection weights
-    [H+D, r] under which the decode of ``mem`` stops after ``steps`` steps,
-    as a trained model stops at the end of its text.  The head reads the
-    frame projection (weights ``wf @ c``), so that its logit at step t is
-    (frame_t - bf) . c, with ``c`` the minimum-norm solution of
-    (frame_t - bf) . c = t - steps + 1.5 over the first ``steps`` frames of
-    the decode kernel: a ramp that crosses 0 at the last of them.  Until it
-    stops, a decode does not depend on its stop head."""
+    [H+D, r] under which row b of the decode of ``mem`` stops after
+    ``targets[b]`` steps, as a trained model stops at the end of its text.
+    The head reads the frame projection (weights ``wf @ c``), so that its
+    logit at step t is (frame_t - bf) . c, with ``c`` the minimum-norm
+    solution of (frame_{b,t} - bf) . c = t - targets[b] + 1.5 over the first
+    ``targets[b]`` frames of every row of the decode kernel: a ramp per row
+    that crosses 0 at the last of them.  It is exact while the rows' steps
+    add up to less than the frame width rM.  Until it stops, a decode does
+    not depend on its stop head."""
     fp.f['bs'].fill_(-1e4)                                  # no stop
-    frames = fd.decode_full(fp, *mem, steps)[0][:, 0].double()
-    f = frames - fp.f['bf'].double()
-    ramp = torch.arange(steps, dtype=torch.float64, device=f.device) - steps + 1.5
+    frames = fd.decode_full(fp, *mem, max(targets))[0].double()
+    f = torch.cat([frames[:t, b] for b, t in enumerate(targets)]) - fp.f['bf'].double()
+    ramp = torch.cat([torch.arange(t, dtype=torch.float64, device=f.device) - t + 1.5
+                      for t in targets])
     c = torch.linalg.pinv(f) @ ramp
     return (fp.w['wf'].double() @ c).float()[:, None].expand(-1, fp.dims.r).contiguous()
 
@@ -375,7 +479,7 @@ def plan_requests(fd, synth):
             enc = synth._encode(text)
             mem = (enc['keys'], enc['values'], enc['mask'])
             target = math.ceil(len(text.split()) * FRAMES_PER_SYLLABLE / r)
-            ws = stop_head(fd, fp, mem, target)
+            ws = stop_head(fd, fp, mem, [target])
             fp.w['ws'].copy_(ws)
             zs = [stop_logits(fd, fp, mem, target + 1, decode)[0]
                   for decode in (fd.decode_full, fd.decode_full_plain)]
@@ -485,6 +589,226 @@ def main_path(fd, device):
     return synth, plan, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the batched path (what the app serves by default)
+# ---------------------------------------------------------------------------
+
+def cohort_logits(fd, fp, mem, targets, decode):
+    """Largest bias-free stop logit per row and step, [B, max(targets)], of
+    a decode in which the stop bias is -20; only the steps before each
+    row's target are read."""
+    fp.f['bs'].fill_(-20.0)
+    steps = max(targets)
+    p = fd.to_outputs(fp, *decode(fp, *mem, steps))['stop_token_outputs']
+    z = stop_logit(p).cpu().numpy() + 20.0
+    return z.reshape(p.shape[0], steps, fp.dims.r).max(-1)
+
+
+def cohort_bias(zs, targets, margin: float = 0.05) -> float:
+    """The stop bias under which every row b of every decode in ``zs``
+    stops after exactly ``targets[b]`` steps, halfway between the largest
+    logit before those steps and the smallest at them; both must be at
+    least ``2 * margin`` apart, so that rounding cannot move a stop."""
+    lo = max((float(z[b, :t - 1].max()) for z in zs
+              for b, t in zip(range(z.shape[0]), targets) if t > 1), default=-80.0)
+    hi = min(float(z[b, t - 1]) for z in zs for b, t in zip(range(z.shape[0]), targets))
+    if not hi - lo >= 2 * margin:
+        raise RuntimeError(f'no stop bias stops every row at its target: '
+                           f'largest logit before {lo:.3f}, smallest at {hi:.3f}')
+    return -(lo + hi) / 2
+
+
+def memory_of(enc):
+    return enc['keys'], enc['values'], enc['mask']
+
+
+def plan_cohorts(fd, synth):
+    """A stop head fitted jointly to the rows of the largest cohort, and
+    one stop bias under which every text stops after the steps its
+    syllables take, whether it is decoded in any cohort, alone, or by the
+    plain version.  Returns (head, targets)."""
+    r = synth.cfg.acoustic.outputs_per_step
+    targets = [math.ceil(len(t.split()) * FRAMES_PER_SYLLABLE / r) for t in BATCH_TEXTS]
+    fp = fd.fold_params(synth.acoustic.decoder_cell)
+    with torch.no_grad():
+        mem = memory_of(synth._encode_batch(BATCH_TEXTS))
+        ws = stop_head(fd, fp, mem, targets)
+        fp.w['ws'].copy_(ws)
+        alone = [memory_of(synth._encode(t)) for t in BATCH_TEXTS]
+        alone = tuple(torch.cat(x) for x in zip(*alone))
+        mems = [mem, alone] + [memory_of(synth._encode_batch(BATCH_TEXTS[:c]))
+                               for c in COHORTS if c < len(BATCH_TEXTS)]
+        zs = [cohort_logits(fd, fp, m, targets[:m[2].shape[0]], fd.decode_full) for m in mems]
+        zs.append(cohort_logits(fd, fp, mem, targets, fd.decode_full_plain))
+        bias = cohort_bias(zs, targets)
+    log(f'  {len(BATCH_TEXTS)} texts in one text bucket (N={mem[2].shape[1]}), targets '
+        f'{targets} steps, stop bias {bias:.4f} for every cohort, alone and plain')
+    return (ws, bias), targets
+
+
+def cohort_checks(fd, synth, targets):
+    """Per cohort, outside the counted run: out_lengths against the plan
+    and the plain decode of the same cohort; each row's mel bit-identical
+    to that row decoded alone from the same encoder output (one block per
+    row runs the same code whatever B is); each text encoded and decoded
+    alone at the batching server's fixed 8 rows bit-identical to its row in
+    the cohort of 8; the same text encoded alone at 1 row (the encoder's
+    sums may differ in their last bits between batch shapes, which the
+    bf16 decode carries) only logged; then the decode's time per cohort
+    (CUDA events)."""
+    r, rows, failures = synth.cfg.acoustic.outputs_per_step, max(COHORTS), []
+    with torch.no_grad():
+        fixed = [synth._acoustic_batch([t], rows)['mel_outputs'][0] for t in BATCH_TEXTS]
+        for c in COHORTS:
+            cohort = BATCH_TEXTS[:c]
+            enc = synth._encode_batch(cohort)
+            out = synth._decode(enc)
+            ref = fd.to_outputs(synth.decoder, *fd.decode_full_plain(
+                synth.decoder, *memory_of(enc), synth.max_iters, early_exit=True))
+            lengths = out['out_lengths'][:c].tolist()
+            errs = errors(synth.decoder, out, ref)
+            rows_alone = [{k: enc[k][i:i + 1] for k in ('keys', 'values', 'mask')}
+                          for i in range(c)]
+            same = [torch.equal(synth._decode(row)['mel_outputs'][0], out['mel_outputs'][i])
+                    for i, row in enumerate(rows_alone)]
+            alone = [synth._encode(t) for t in cohort]
+            enc_diff = max(float((a[k][0] - enc[k][i]).abs().max())
+                           for i, a in enumerate(alone) for k in ('keys', 'values'))
+            mel_diff = max(float((synth._decode(a)['mel_outputs'][0] - out['mel_outputs'][i]
+                                  ).abs().max()) for i, a in enumerate(alone))
+            decode_ms = cuda_ms(lambda: synth._decode(enc), 5)
+            log(f'  cohort of {c}: lengths {lengths}, plain decode '
+                + err_text(errs, torch.bfloat16) + f'; rows bit-identical to the row decoded alone: {sum(same)}/{c}; text '
+                f'encoded alone: keys/values {enc_diff:.2e}, mel {mel_diff:.2e}; decode '
+                f'{decode_ms:.3f} ms, {decode_ms / max(targets[:c]):.4f} ms per step of its '
+                f'longest row')
+            if (lengths != [t * r for t in targets[:c]] or not within(errs, torch.bfloat16)
+                    or not all(same)):
+                failures.append(c)
+        same8 = [torch.equal(m, out['mel_outputs'][i]) for i, m in enumerate(fixed)]
+        log(f'  each text alone at {rows} rows, bit-identical to its row in the cohort of '
+            f'{rows}: {sum(same8)}/{len(same8)}')
+        if not all(same8):
+            failures.append(f'alone at {rows} rows')
+    if failures:
+        raise AssertionError(f'cohorts disagree with their plan: {failures}')
+
+
+def vocoder_batch_spread(synth, targets):
+    """The vocoder stage's dependence on its batch: the specs of each
+    64-frame bucket vocoded together and one by one, with the same phase
+    per spec; returns the largest difference of a wav."""
+    r, au = synth.cfg.acoustic.outputs_per_step, synth.cfg.audio
+    specs = synth.synthesize_spec_batch(list(BATCH_TEXTS))
+    g = torch.Generator().manual_seed(SEED)
+    worst = 0.0
+    for bucket in sorted({math.ceil(t * r / 64) for t in targets}):
+        group = [s for s, t in zip(specs, targets) if math.ceil(t * r / 64) == bucket]
+        thetas = [2 * math.pi * torch.rand(au.n_freq, 64 * bucket, generator=g) for _ in group]
+        together = synth.vocode_batch(group, thetas=thetas)
+        diffs = [float(np.abs(w - synth.vocode_batch([s], thetas=[th])[0]).max())
+                 for s, th, w in zip(group, thetas, together)]
+        log(f'  vocode_batch of {len(group)} specs ({64 * bucket}-frame bucket) against each '
+            f'alone, same phase: largest difference per wav {[f"{x:.2e}" for x in diffs]}')
+        worst = max([worst] + diffs)
+    return worst
+
+
+def http_concurrent(fd, synth, targets):
+    """8 concurrent GET /synth through serve_all(batching=True), twice, then
+    the same 8 one after another; each wav must equal its serial answer."""
+    from scipy.io import wavfile
+    from transtacos_retunegan_tpu_torch.serve.httpd import serve_all
+    hop, r = synth.cfg.audio.hop_length, synth.cfg.acoustic.outputs_per_step
+    servers = serve_all(synth, host='127.0.0.1', webui_port=0, vocoder_port=0,
+                        acoustic_port=0, batching=True, max_batch=max(COHORTS))
+    try:
+        servers[0].frontend.warm_up()
+        port = servers[0].server_address[1]
+
+        def get(text):
+            body = urllib.request.urlopen(f'http://127.0.0.1:{port}/synth?text='
+                                          + text.replace(' ', '%20'), timeout=300).read()
+            return wavfile.read(io.BytesIO(body))[1]
+
+        def concurrent():
+            out = [None] * len(BATCH_TEXTS)
+            threads = [threading.Thread(target=lambda i=i, t=t: out.__setitem__(i, get(t)))
+                       for i, t in enumerate(BATCH_TEXTS)]
+            before, t0 = fd.LAUNCHES['decode_full'], time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            return out, 1e3 * (time.perf_counter() - t0), fd.LAUNCHES['decode_full'] - before
+
+        # twice: the first round may meet shapes that the warm-up did not
+        # (the 128-frame bucket on the vocoder thread)
+        rounds = [concurrent() for _ in range(2)]
+        t0 = time.perf_counter()
+        serial = [get(t) for t in BATCH_TEXTS]
+        serial_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        for server in servers:
+            server.shutdown()
+            server.server_close()
+    for conc, conc_ms, cohorts in rounds:
+        same = [np.array_equal(w, v) for w, v in zip(conc, serial)]
+        log(f'  {len(BATCH_TEXTS)} concurrent GET /synth: {conc_ms:.2f} ms in {cohorts} acoustic '
+            f'cohort(s); bit-identical to the serial answer: {sum(same)}/{len(same)}, largest '
+            f'difference {max(float(np.abs(w - v).max()) for w, v in zip(conc, serial)):.2e}')
+        if cohorts < 1 or not all(same):
+            raise AssertionError('concurrent GET /synth disagrees with the serial answers')
+    log(f'  the same {len(BATCH_TEXTS)} GET /synth one by one: {serial_ms:.2f} ms')
+    for v, t in zip(serial, targets):
+        check_wav(v, hop, t * r)
+
+
+def batched_path(fd, lk, synth):
+    """Phase 5.  Plans the stops, checks the cohorts against the plain
+    decode and the texts decoded alone, measures the vocoder's dependence
+    on its batch, warms each cohort size, then, with the launch counters at
+    0, answers ``tts_batch`` for cohorts of 1, 2, 4 and 8 texts and 8
+    concurrent plus 8 serial ``GET /synth`` through the batching server,
+    and reads the counters.  Returns the launches."""
+    hop, r = synth.cfg.audio.hop_length, synth.cfg.acoustic.outputs_per_step
+    sr = synth.cfg.audio.sample_rate
+    head, targets = plan_cohorts(fd, synth)
+    use_stop(synth, head)
+    cohort_checks(fd, synth, targets)
+    vocoder_batch_spread(synth, targets)
+    for c in COHORTS:                                    # warm-up per batch shape
+        synth.tts_batch(list(BATCH_TEXTS[:c]))
+    torch.cuda.synchronize()
+
+    for counts in (fd.LAUNCHES, lk.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    for c in COHORTS:
+        ms = []
+        for _ in range(BATCH_REPS):
+            before = dict(fd.LAUNCHES)
+            t0 = time.perf_counter()
+            wavs = synth.tts_batch(list(BATCH_TEXTS[:c]))
+            ms.append(1e3 * (time.perf_counter() - t0))
+            rose = {k: fd.LAUNCHES[k] - before[k] for k in before}
+            if rose != {'decode_step': 0, 'decode_full': 1}:
+                raise AssertionError(f'a cohort must launch decode_full once: {rose}')
+            for w, t in zip(wavs, targets):
+                check_wav(w, hop, t * r)
+        med = float(np.median(ms))
+        secs = sum(len(w) for w in wavs) / sr
+        log(f'  tts_batch cohort of {c}: median {med:.3f} ms over {BATCH_REPS} '
+            f'(min {min(ms):.3f}), {secs:.3f} s of audio, '
+            f'{secs / (med / 1e3):.2f} audio-seconds per second, launches {rose}')
+    http_concurrent(fd, synth, targets)
+    launches = {**fd.LAUNCHES, **lk.LAUNCHES}
+    log(f'  LAUNCHES after the batched path: {launches}')
+    if launches['decode_full'] < 1 or launches['decode_step'] != 0:
+        raise AssertionError(f'the batched path must go through decode_full only: {launches}')
+    return launches
+
+
 def stage_times(synth, plan, text: str, reps: int = 5):
     """Per-stage time of one tts_fused request (host clock, synchronised
     after each stage), mean over ``reps`` runs after a warm-up."""
@@ -509,7 +833,8 @@ def stage_times(synth, plan, text: str, reps: int = 5):
         out = stage('decode', synth._decode, enc)
         mag = stage('posnet', posnet_apply, synth.acoustic, out['mel_outputs'])
         s = dsp.fix_zero_dc(dsp.spec_to_natural_scale(mag[0].T, au), au)
-        mel, tmpl = stage('gl_template', synth._template, s)
+        mel, tmpl = stage('gl_template', synth._template, s[None], None,
+                          [synth._generator()])
         stage('generator', synth._generate, mel, tmpl)
     ms = {k: v / reps for k, v in acc.items()}
     log('  stages of tts_fused (ms): ' + ', '.join(f'{k} {v:.3f}' for k, v in ms.items())
@@ -518,7 +843,7 @@ def stage_times(synth, plan, text: str, reps: int = 5):
     return ms
 
 
-def request_latency(synth, plan, n: int = 20):
+def request_latency(synth, plan, n: int = 10):
     """Host-clock time of ``n`` back-to-back tts_fused requests of each
     text, each ending with its wav on the host: median and quartiles, and
     the real-time factor (median time over the wav's duration)."""
@@ -595,6 +920,7 @@ def main() -> int:
         return 1
     from transtacos_retunegan_tpu_torch.ops import build
     from transtacos_retunegan_tpu_torch.ops import fused_decoder as fd
+    from transtacos_retunegan_tpu_torch.ops import lsa_kernel as lk
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device('cuda')
@@ -613,29 +939,43 @@ def main() -> int:
 
     log('== phase 2: kernels against their plain versions, full width')
     worst = compare_kernels(fd, device)
+    worst['lsa_step'] = compare_lsa(lk, device)
 
     log('== phase 3: timing (CUDA events)')
     times = time_kernels(fd, device)
+    times['lsa_step'] = time_lsa(lk, device)
 
-    log('== phase 4: main path (Synthesizer on the card)')
+    log('== phase 4: main path, one request at a time (Synthesizer on the card)')
+    lk.LAUNCHES['lsa_step'] = 0
     synth, plan, launches = main_path(fd, device)
     if not all(launches[k] > 0 for k in launches):
         raise AssertionError(f'a kernel of the path was not launched: {launches}')
+    launches['lsa_step'] = lk.LAUNCHES['lsa_step']
+
+    log('== phase 5: batched path (tts_batch and the batching server, max_batch 8)')
+    batched = batched_path(fd, lk, synth)
+    launches = {k: launches[k] + batched[k] for k in launches}
+    log(f'  LAUNCHES over both paths: {launches} (lsa_step: no path of the system calls it)')
+
+    log('== phase 6: per-stage time, latency, threads, small config against the CPU')
     stage_times(synth, plan, REQUESTS[-1])
     request_latency(synth, plan)
     thread_cost(synth, plan, REQUESTS[1])
     slice_against_cpu(device)
 
+    sources = {'decode_step': 'fused_decoder.cu', 'decode_full': 'fused_decoder.cu',
+               'lsa_step': 'lsa_step.cu'}
     replaces = {'decode_step': 'transtacos_retunegan_tpu/ops/fused_decoder.py:273',
-                'decode_full': 'transtacos_retunegan_tpu/ops/fused_decoder.py:402'}
+                'decode_full': 'transtacos_retunegan_tpu/ops/fused_decoder.py:402',
+                'lsa_step': 'transtacos_retunegan_tpu/ops/lsa_kernel.py:65'}
     record = {'kernels': [
         {'name': k, 'route': 'cuda',
-         'source': 'transtacos_retunegan_tpu_torch/csrc/fused_decoder.cu',
+         'source': f'transtacos_retunegan_tpu_torch/csrc/{sources[k]}',
          'replaces': replaces[k], 'launches': launches[k],
          'max_abs_err': worst[k], 'ms': times[k]['ms'],
          'plain_ms': times[k]['plain_ms'], 'bound_ms': times[k]['bound'][0],
          'bound_by': times[k]['bound'][1], 'library_ms': None}
-        for k in ('decode_step', 'decode_full')]}
+        for k in ('decode_step', 'decode_full', 'lsa_step')]}
     log(f'total {time.perf_counter() - t_start:.1f} s')
     log(card)
     log(json.dumps(record))

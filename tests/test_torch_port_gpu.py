@@ -1,4 +1,4 @@
-"""The CUDA decode kernels against their plain PyTorch versions on the card.
+"""The CUDA kernels against their plain PyTorch versions on the card.
 
 Every test here is marked ``gpu`` and skips without a CUDA device; on a
 machine with one run
@@ -9,6 +9,8 @@ Whether a card is present is decided inside the fixture, never at import.
 Tolerances: float32 weights 1e-4 absolute (six steps of float32 sums taken
 in another order than PyTorch's); bf16 weights 1e-2, since both sides round
 the same operands to bf16 but a different sum order can flip one rounding.
+The LSA step: 1e-5 on the alignment and cum, 1e-4 on the context
+(``tests/test_ops.py``'s bounds; float32 sums in another order).
 """
 
 import dataclasses
@@ -20,6 +22,7 @@ import torch
 from transtacos_retunegan_tpu_torch.config import Config
 from transtacos_retunegan_tpu_torch.models.decoder import DecoderCell
 from transtacos_retunegan_tpu_torch.ops import fused_decoder as fd
+from transtacos_retunegan_tpu_torch.ops import lsa_kernel as lk
 from transtacos_retunegan_tpu_torch.weights import seeded_init
 
 pytestmark = pytest.mark.gpu
@@ -126,18 +129,76 @@ def test_wrapper_rejects_bad_operands(cuda):
         fd.decode_step(fp, prev, ctx, hs[:1], cum, keys, values, mask, fin)
 
 
-def test_synthesizer_on_the_card(cuda):
-    from transtacos_retunegan_tpu_torch.serve.pipeline import Synthesizer
+def _small_cfg():
     base = Config()
-    cfg = dataclasses.replace(
+    return dataclasses.replace(
         base, acoustic=dataclasses.replace(
             base.acoustic, embed_depth=32, encoder_depth=32, decoder_depth=64,
             attention_depth=16, prenet_depths=(32,), posnet_depth=64,
             var_embed_depth=16, var_prednet_depth=16, prdsnet_depth=16,
             posenc_depth=8, max_iters=8),
         vocoder=dataclasses.replace(base.vocoder, upsample_initial_channel=64))
-    synth = Synthesizer(cfg)
+
+
+def test_synthesizer_on_the_card(cuda):
+    from transtacos_retunegan_tpu_torch.serve.pipeline import Synthesizer
+    synth = Synthesizer(_small_cfg())
     before = fd.LAUNCHES['decode_full']
     wav = synth.tts_fused('ni3 hao3')
     assert fd.LAUNCHES['decode_full'] == before + 1
     assert wav.dtype == np.float32 and len(wav) > 0 and np.isfinite(wav).all()
+
+
+def _lsa_inputs(device, b, n, a, d, kwin, lens, seed=0):
+    r = np.random.RandomState(seed)
+    mask = (np.arange(n)[None] < np.asarray(lens)[:, None]).astype(np.float32)
+    xs = (r.randn(b, a), np.abs(r.randn(b, n)), 0.1 * r.randn(b, n, a), r.randn(b, n, d),
+          mask, 0.05 * r.randn(kwin, a), 0.1 * r.randn(a), 0.01 * r.randn(a))
+    return [torch.tensor(x, dtype=torch.float32, device=device) for x in xs]
+
+
+@pytest.mark.parametrize('shape', [(4, 128, 128, 256, 31, [128, 70, 3, 0]),
+                                   (8, 64, 128, 256, 31, [64, 60, 50, 40, 30, 20, 9, 1]),
+                                   (1, 16, 128, 256, 5, [16])],
+                         ids=['B4-N128-k31', 'B8-N64-k31', 'B1-N16-k5'])
+def test_lsa_step_kernel_matches_plain(cuda, shape):
+    *dims, lens = shape
+    args = _lsa_inputs(cuda, *dims, lens)
+    before = lk.LAUNCHES['lsa_step']
+    got = lk.lsa_step_fused(*args)
+    assert lk.LAUNCHES['lsa_step'] == before + 1
+    ref = lk.lsa_step_plain(*args)
+    for g, r, tol in zip(got, ref, (1e-5, 1e-5, 1e-4)):
+        assert float((g - r).abs().max()) <= tol
+    if lens[-1] == 0:
+        assert float(got[0][-1].abs().max()) == 0.0 and float(got[2][-1].abs().max()) == 0.0
+
+
+def test_lsa_wrapper_rejects_bad_operands(cuda):
+    args = _lsa_inputs(cuda, 2, 16, 16, 32, 31, [16, 8])
+    for i, bad, match in ((2, args[2][:, :, :8].contiguous(), 'shape'),
+                          (0, args[0].double(), 'float32'),
+                          (5, args[5][:4].contiguous(), 'odd'), (1, args[1].cpu(), 'device')):
+        with pytest.raises(ValueError, match=match):
+            lk.lsa_step_fused(*args[:i], bad, *args[i + 1:])
+
+
+def test_spec_batch_on_the_card_matches_the_cpu(cuda):
+    """``synthesize_spec_batch`` at B=4 (float32 decoder weights) on the card
+    against the same synthesizer on the CPU, every row decoding all steps:
+    one ``decode_full`` launch, specs within 1e-3 relative and 1e-4
+    absolute (float32 sums in another order, exponentiated by the natural
+    scale)."""
+    from transtacos_retunegan_tpu_torch.serve.pipeline import Synthesizer
+    texts = ['ni3 hao3 shi4 jie4', 'da4 jia1 hao3', 'zhong1 guo2', 'a1']
+    specs = []
+    for device in (cuda, 'cpu'):
+        synth = Synthesizer(_small_cfg(), device=device)
+        synth.acoustic.decoder_cell.stop_projection.bias.fill_(-20.0)   # no stop
+        synth.decoder = fd.fold_params(synth.acoustic.decoder_cell, torch.float32)
+        before = fd.LAUNCHES['decode_full']
+        specs.append(synth.synthesize_spec_batch(texts))
+        assert fd.LAUNCHES['decode_full'] == before + (device == cuda)
+    for g, r in zip(*specs):
+        assert g.shape == r.shape
+        np.testing.assert_allclose(g, r, rtol=1e-3, atol=1e-4)

@@ -11,7 +11,7 @@ spectrograms ``[..., F, n_frames]``.
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -48,13 +48,23 @@ def _window(kind: str, win_length: int, n_fft: int, like: torch.Tensor):
         like.device)
 
 
+@functools.lru_cache(maxsize=32)
+def _reflect_index(n: int, pad: int) -> np.ndarray:
+    """Indices of ``y`` padded by ``pad`` on each side with numpy's
+    'reflect' mode, which, unlike ``F.pad``, also takes ``pad >= n``."""
+    period = 2 * (n - 1)
+    i = np.abs(np.arange(-pad, n + pad)) % period
+    return np.where(i >= n, period - i, i)
+
+
 def stft(y: torch.Tensor, n_fft: int, hop_length: int, win_length: int,
          window: str = 'hann') -> torch.Tensor:
     """Complex STFT ``[..., T] -> [..., n_fft//2+1, n_frames]``."""
     lead = y.shape[:-1]
-    s = torch.stft(y.reshape(-1, y.shape[-1]), n_fft, hop_length,
+    idx = torch.from_numpy(_reflect_index(y.shape[-1], n_fft // 2)).to(y.device)
+    s = torch.stft(y.reshape(-1, y.shape[-1])[:, idx], n_fft, hop_length,
                    window=_window(window, win_length, n_fft, y),
-                   center=True, pad_mode='reflect', return_complex=True)
+                   center=False, return_complex=True)
     return s.reshape(lead + s.shape[-2:])
 
 
@@ -93,23 +103,39 @@ def istft_ri(re: torch.Tensor, im: torch.Tensor, hop_length: int,
     return istft(torch.complex(re, im), hop_length, win_length, window, length)
 
 
+Generators = Union[None, torch.Generator, Sequence[torch.Generator]]
+
+
+def random_phase(shape, generator: Generators, device) -> torch.Tensor:
+    """``2*pi*U[0, 1)`` of ``shape``.  ``generator`` is one
+    ``torch.Generator`` (or None, the default one) for the whole tensor, or a
+    sequence of them, one per row of the leading dimension: each row then
+    draws exactly what it would draw alone, whatever batch it is in."""
+    if generator is None or isinstance(generator, torch.Generator):
+        return 2.0 * np.pi * torch.rand(shape, generator=generator, device=device)
+    if len(generator) != shape[0]:
+        raise ValueError(f'{len(generator)} generators for {shape[0]} rows')
+    return torch.stack([2.0 * np.pi * torch.rand(shape[1:], generator=g, device=device)
+                        for g in generator])
+
+
 def griffin_lim(mag: torch.Tensor, n_iter: int, hop_length: int,
                 win_length: int, window: str = 'hann', momentum: float = 0.0,
                 length: Optional[int] = None,
                 theta: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Generators = None) -> torch.Tensor:
     """Phase reconstruction ``[..., F, n_frames] -> [..., T]``.
 
     The initial phase is ``theta`` (radians, the shape of ``mag``) when
-    given, else ``2*pi*U[0, 1)`` drawn from ``generator`` on mag's device.
-    ``momentum=0`` is the plain alternating projection; ``0.7`` is the fast
-    flavour used for the vocoder template.
+    given, else drawn by ``random_phase`` from ``generator`` on mag's device
+    (one per row of a batch ``[B, F, n_frames]``, as the JAX package's vmap
+    over per-request keys).  ``momentum=0`` is the plain alternating
+    projection; ``0.7`` is the fast flavour used for the vocoder template.
     """
     mag = mag.abs()
     n_fft = 2 * (mag.shape[-2] - 1)
     if theta is None:
-        theta = 2.0 * np.pi * torch.rand(mag.shape, generator=generator,
-                                         device=mag.device)
+        theta = random_phase(mag.shape, generator, mag.device)
     p = torch.polar(torch.ones_like(mag), theta.to(mag))
     alpha = momentum / (1.0 + momentum)
     t = torch.zeros_like(p)
@@ -185,12 +211,26 @@ def mag_to_mel(mag_natural: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
 def inv_log_mag(log_mag: torch.Tensor, cfg: AudioConfig,
                 length: Optional[int] = None,
                 theta: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """log-magnitude -> waveform through the fast Griffin-Lim (4 iterations,
-    momentum 0.7): exp, a zero DC row if dropped, power law, length bound."""
+                generator: Generators = None) -> torch.Tensor:
+    """log-magnitude ``[..., F, T]`` -> waveform through the fast
+    Griffin-Lim (4 iterations, momentum 0.7): exp, a zero DC row if dropped,
+    power law, length bound.  ``theta``/``generator`` as ``griffin_lim``."""
     s = torch.exp(log_mag)
     if s.shape[-2] == cfg.n_freq - 1:
         s = torch.cat([torch.zeros_like(s[..., :1, :]), s], dim=-2)
     return griffin_lim(s ** cfg.gl_power, cfg.gl_iters_vocoder, cfg.hop_length,
                        cfg.win_length, cfg.window_fn, momentum=cfg.gl_momentum,
                        length=length, theta=theta, generator=generator)
+
+
+def inv_spec_acoustic(mag_natural: torch.Tensor, cfg: AudioConfig,
+                      theta: Optional[torch.Tensor] = None,
+                      generator: Generators = None) -> torch.Tensor:
+    """natural |STFT| ``[..., F, T]`` -> waveform the acoustic service's way
+    (the JAX ``Synthesizer._build_gl``): plain Griffin-Lim (``gl_iters_acoustic``
+    iterations, momentum 0) on ``mag ** gl_power``, then inverse
+    pre-emphasis.  ``theta``/``generator`` as ``griffin_lim``."""
+    y = griffin_lim(mag_natural ** cfg.gl_power, cfg.gl_iters_acoustic,
+                    cfg.hop_length, cfg.win_length, cfg.window_fn, momentum=0.0,
+                    theta=theta, generator=generator)
+    return inv_preemphasis(y, cfg.preemphasis)

@@ -6,6 +6,8 @@ flags, so an edited source rebuilds), then loaded with ``ctypes``.  Builds
 happen at first use, from the checkout's sources only.  ``build_all``
 starts one ``nvcc`` per source at once and returns each build's
 ``-Xptxas -v`` report (registers, shared memory, spills per kernel).
+``device_kind``, ``ptr`` and ``stream`` are what the wrappers hand the C
+interface.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, List
+
+import torch
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / 'csrc'
@@ -86,3 +90,19 @@ def load(name: str) -> ctypes.CDLL:
         _finish(name, out, job)
         _LIBS[name] = ctypes.CDLL(str(out))
     return _LIBS[name]
+
+
+def device_kind(t: torch.Tensor) -> str:
+    """'cpu' (the wrapper runs its plain version) or 'cuda' (it launches)."""
+    if t.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'unsupported device {t.device}')
+    return t.device.type
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream(t: torch.Tensor) -> ctypes.c_void_p:
+    """PyTorch's current CUDA stream on ``t``'s device."""
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)

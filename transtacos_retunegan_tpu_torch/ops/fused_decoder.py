@@ -26,10 +26,11 @@ from dataclasses import dataclass
 from typing import Dict, NamedTuple, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from ..models.decoder import out_lengths
 from . import build
+from .build import device_kind, ptr, stream
+from .lsa_kernel import fold_location_params, lsa_step_plain
 
 LAUNCHES: Dict[str, int] = {'decode_step': 0, 'decode_full': 0}
 
@@ -61,13 +62,6 @@ class FoldedParams:
     woff: Dict[str, int]                # element offsets into wbuf
     foff: Dict[str, int]                # element offsets into fbuf
     dims: Dims
-
-
-def fold_location_params(conv_weight: torch.Tensor,
-                         w_loc: torch.Tensor) -> torch.Tensor:
-    """Location conv ``[F, 1, 31]`` and dense ``[A, F]`` (torch layouts) ->
-    one ``[31, A]`` matrix: both are linear, so folding is exact."""
-    return torch.einsum('fik,af->ka', conv_weight, w_loc)
 
 
 def _pack(named, dtype, device):
@@ -161,17 +155,8 @@ def decode_step_plain(fp: FoldedParams, prev, ctx, hs, cum, keys, values,
         h_new = (1.0 - z) * n + z * hs[j]
         h_news.append(h_new)
         x = h_new + x
-    q = _mm(x, w['wq'])
-    half = d.kwin // 2
-    windows = F.pad(cum, (half, half)).unfold(1, d.kwin, 1)      # [B, N, 31]
-    loc = windows @ f['loc']
-    pre = torch.tanh(keys + q[:, None, :] + loc + f['ba'])
-    e = pre @ f['v']
-    valid = mask > 0
-    e = torch.where(valid, e, torch.full_like(e, -1e30))
-    wgt = torch.exp(e - e.amax(-1, keepdim=True)) * valid
-    align = wgt / (wgt.sum(-1, keepdim=True) + 1e-30)
-    ctx_new = torch.einsum('bn,bnd->bd', align, values)
+    align, cum_new, ctx_new = lsa_step_plain(_mm(x, w['wq']), cum, keys, values,
+                                             mask, f['loc'], f['v'], f['ba'])
     proj = torch.cat([x, ctx_new], -1)
     frames = _mm(proj, w['wf']) + f['bf']
     stop = torch.sigmoid(_mm(proj, w['ws']) + f['bs'])
@@ -180,7 +165,7 @@ def decode_step_plain(fp: FoldedParams, prev, ctx, hs, cum, keys, values,
     frames = frames * (1.0 - finished)
     held = finished > 0
     outs = (frames, stop, align, torch.where(held, ctx, ctx_new),
-            torch.where(held, cum, cum + align),
+            torch.where(held, cum, cum_new),
             torch.where(held, prev, frames[:, -d.n_mel:]), fin)
     return outs, tuple(torch.where(held, h0, h1) for h0, h1 in zip(hs, h_news))
 
@@ -251,10 +236,6 @@ def _meta(fp: FoldedParams, b: int, n: int, steps: int, early_exit: bool):
     return (ctypes.c_longlong * len(meta))(*meta), len(meta)
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
 def _check(fp: FoldedParams, keys, values, mask, prev=None, ctx=None, hs=(),
            cum=None, finished=None):
     """Shapes, device, dtype and layout of the operands (the carry only for
@@ -303,10 +284,6 @@ def _raise(lib, rc: int, what: str):
         raise RuntimeError(f'{what} launch failed: {msg} ({rc})')
 
 
-def _stream(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
 def _launch_full(lib, fp: FoldedParams, keys, values, mask, steps: int,
                  early_exit: bool):
     b, n = mask.shape
@@ -317,8 +294,8 @@ def _launch_full(lib, fp: FoldedParams, keys, values, mask, steps: int,
     align, fin = new(steps, b, n), new(steps, b, 1)
     rc = lib.decode_full(
         ctypes.c_int(fp.wbuf.dtype == torch.bfloat16), meta, ctypes.c_int(n_meta),
-        _ptr(fp.wbuf), _ptr(fp.fbuf), _ptr(keys), _ptr(values), _ptr(mask),
-        _ptr(frames), _ptr(stop), _ptr(align), _ptr(fin), _stream(keys))
+        ptr(fp.wbuf), ptr(fp.fbuf), ptr(keys), ptr(values), ptr(mask),
+        ptr(frames), ptr(stop), ptr(align), ptr(fin), stream(keys))
     _raise(lib, rc, 'decode_full')
     return frames, stop, align, fin
 
@@ -336,25 +313,19 @@ def _launch_step(lib, fp: FoldedParams, prev, ctx, hs, cum, keys, values,
     fin_o, hs_o = new(finished), new(hs_in)
     rc = lib.decode_step(
         ctypes.c_int(fp.wbuf.dtype == torch.bfloat16), meta, ctypes.c_int(n_meta),
-        _ptr(fp.wbuf), _ptr(fp.fbuf), _ptr(prev), _ptr(ctx), _ptr(hs_in),
-        _ptr(cum), _ptr(keys), _ptr(values), _ptr(mask), _ptr(finished),
-        _ptr(frames), _ptr(stop), _ptr(align), _ptr(ctx_o), _ptr(cum_o),
-        _ptr(prev_o), _ptr(fin_o), _ptr(hs_o), _stream(keys))
+        ptr(fp.wbuf), ptr(fp.fbuf), ptr(prev), ptr(ctx), ptr(hs_in),
+        ptr(cum), ptr(keys), ptr(values), ptr(mask), ptr(finished),
+        ptr(frames), ptr(stop), ptr(align), ptr(ctx_o), ptr(cum_o),
+        ptr(prev_o), ptr(fin_o), ptr(hs_o), stream(keys))
     _raise(lib, rc, 'decode_step')
     return (frames, stop, align, ctx_o, cum_o, prev_o, fin_o), tuple(hs_o.unbind(0))
-
-
-def _device_kind(t: torch.Tensor) -> str:
-    if t.device.type not in ('cpu', 'cuda'):
-        raise ValueError(f'unsupported device {t.device}')
-    return t.device.type
 
 
 def decode_step(fp: FoldedParams, prev, ctx, hs, cum, keys, values, mask,
                 finished):
     """One decode step: the plain version on CPU tensors, the
     ``decode_step_kernel`` launch on CUDA tensors."""
-    if _device_kind(keys) == 'cpu':
+    if device_kind(keys) == 'cpu':
         return decode_step_plain(fp, prev, ctx, hs, cum, keys, values, mask,
                                  finished)
     _check(fp, keys, values, mask, prev, ctx, hs, cum, finished)
@@ -369,7 +340,7 @@ def decode_full(fp: FoldedParams, keys, values, mask, steps: int,
                 early_exit: bool = False):
     """Whole decode: the plain version on CPU tensors, one
     ``decode_full_kernel`` launch on CUDA tensors."""
-    if _device_kind(keys) == 'cpu':
+    if device_kind(keys) == 'cpu':
         return decode_full_plain(fp, keys, values, mask, steps, early_exit)
     _check(fp, keys, values, mask)
     with torch.cuda.device(keys.device):

@@ -1,0 +1,93 @@
+"""Serving CLI of the port, after ``transtacos_retunegan_tpu/serve/app.py``.
+
+    python -m transtacos_retunegan_tpu_torch.serve.app \\
+        [--acoustic_npz acoustic.npz --vocoder_npz vocoder.npz] [--mode all]
+
+Modes: ``all`` (default: one process, three reference-compatible ports 5103
+webui, 5104 vocoder, 5105 acoustic) or one role on its reference port (or
+``--port``).  Weights are flax parameter trees saved as ``.npz``
+(``weights.save_npz``); without them the weights are drawn from the seed.
+Micro-batching is on unless ``--batch_window_ms 0``.  Runs on the card
+(``--device cuda``) unless told otherwise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from typing import List, Optional, Sequence
+
+from ..config import Config
+from .httpd import serve, serve_all
+from .pipeline import Synthesizer
+
+PORTS = {'webui': 5103, 'vocoder': 5104, 'acoustic': 5105}
+WARM_TEXT = 'ni3 hao3'
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    p.add_argument('--mode', default='all', choices=['all', *PORTS])
+    p.add_argument('--host', default='0.0.0.0')
+    p.add_argument('--port', type=int, default=None,
+                   help='port of a single-role mode (default: its reference port)')
+    p.add_argument('--config', default=None, help='config.json, its run dir, or a preset')
+    p.add_argument('--acoustic_npz', default=None)
+    p.add_argument('--vocoder_npz', default=None)
+    p.add_argument('--kanji_table', default=None)
+    p.add_argument('--max_iters', type=int, default=None)
+    p.add_argument('--dp', type=int, default=1,
+                   help='data-parallel serving over N cards (only 1 is ported)')
+    p.add_argument('--max_batch', type=int, default=8,
+                   help='dynamic micro-batching: largest coalesced batch')
+    p.add_argument('--batch_window_ms', type=float, default=6.0,
+                   help='micro-batching window; 0 serves one request at a time')
+    p.add_argument('--device', default='cuda')
+    return p.parse_args(argv)
+
+
+def start(args: argparse.Namespace) -> List:
+    """Build the synthesizer, start the servers and warm up every thread
+    that will touch the card; returns the servers."""
+    if args.dp > 1:
+        raise SystemExit(f'--dp {args.dp}: multi-GPU serving is not ported yet')
+    cfg = Config.load(args.config) if args.config else Config()
+    synth = Synthesizer(cfg, acoustic_params=args.acoustic_npz,
+                        gen_params=args.vocoder_npz, kanji_table=args.kanji_table,
+                        max_iters=args.max_iters, device=args.device)
+    batching = args.batch_window_ms > 0
+    kw = dict(batching=batching, max_batch=args.max_batch,
+              batch_window_s=args.batch_window_ms / 1000.0)
+    t0 = time.time()
+    synth.tts(WARM_TEXT)
+    if args.mode == 'all':
+        servers = serve_all(synth, args.host, **kw)
+    else:
+        servers = [serve(synth, args.mode, args.port or PORTS[args.mode],
+                         args.host, **kw)]
+    if batching:
+        servers[0].frontend.warm_up(WARM_TEXT)
+    print(f'warm-up took {time.time() - t0:.1f} s', flush=True)
+    return servers
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    args = parse_args(argv)
+    servers = start(args)
+    print(', '.join(f'{s.role} on port {s.server_address[1]}'
+                    for s in servers)
+          + (f' [micro-batching <= {args.max_batch} @ {args.batch_window_ms:g} ms]'
+             if args.batch_window_ms > 0 else ''), flush=True)
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        for s in servers:
+            s.shutdown()
+            s.server_close()
+
+
+if __name__ == '__main__':
+    main()

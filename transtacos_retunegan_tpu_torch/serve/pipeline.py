@@ -1,33 +1,43 @@
 """Serving pipeline: text -> syl4 -> mag -> (mel, Griffin-Lim template) -> wav.
 
-Port of ``transtacos_retunegan_tpu/serve/pipeline.py`` for one request at a
-time.  Surfaces:
+Port of ``transtacos_retunegan_tpu/serve/pipeline.py``.  Surfaces:
 
-* ``tts_fused(pinyin)``      -- text -> wav in one pass: encoder, the
+* ``tts_fused(pinyin)``      -- text -> wav for one request: encoder, the
   whole-decode kernel (early exit), posnet, DSP, 4-iteration Griffin-Lim
   template and the RefineGAN_small vocoder, run at the full ``max_iters``
   length and trimmed on the host to the stop token
-* ``synthesize_spec(pinyin)`` -- natural-scale linear spec [F, T], DC restored
-* ``vocode(spec)``           -- neural vocoder on a supplied spec
-* ``tts(text)``              -- clause split, then ``tts_fused`` for one
-  clause or spec concat + ``vocode`` for several
+* ``synthesize_spec(pinyin)`` / ``synthesize_spec_batch(pinyins)`` --
+  natural-scale linear spec [F, T], DC restored, trimmed at each row's own
+  stop; a batch is one ``decode_full`` launch over all its rows
+* ``synthesize_wav(pinyin)``  -- the acoustic service's 30-iteration
+  Griffin-Lim, inverse pre-emphasis and silence trim
+* ``synthesize_with_alignment(pinyin)`` -- spec plus the decoder alignment
+* ``vocode(spec)`` / ``vocode_batch(specs)`` -- neural vocoder on supplied
+  specs, one generator forward per batch
+* ``tts(text)`` / ``tts_batch(texts)`` -- text (pinyin, or kanji with a
+  pinyin provider) -> wav, neural or Griffin-Lim
 
-Text pads to a multiple of ``text_bucket`` and specs to 64 frames, as in the
+Text pads to a multiple of ``text_bucket``, specs to 64 frames and batches
+to a power of two rows (fill rows repeat row 0 and are dropped), as in the
 JAX package.  Everything runs on ``device`` (default ``'cuda'``); without a
-card the constructor raises.  The Griffin-Lim phase of each request comes
-from a ``torch.Generator`` seeded with ``(seed, request counter)``, or from
-an explicit ``theta``.
+card the constructor raises.  Each request's Griffin-Lim phase comes from a
+``torch.Generator`` seeded with ``(seed, request counter)``, from
+``content_generator(data)`` (seeded with the request's content, so that a
+batching server's audio does not depend on arrival order), or from an
+explicit ``theta``.
 """
 
 from __future__ import annotations
 
 import itertools
-from typing import Any, List, Optional
+import zlib
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from ..audio import dsp
+from ..audio import dsp, features
 from ..config import Config
 from ..models.acoustic import Tacotron, posnet_apply
 from ..models.generators import make_generator
@@ -89,79 +99,143 @@ class Synthesizer:
         self.decoder = fold_params(self.acoustic.decoder_cell)      # bf16
 
     # ------------------------------------------------------------------
+    # Griffin-Lim phase generators
+    # ------------------------------------------------------------------
     def _generator(self) -> torch.Generator:
-        """Per-request Griffin-Lim phase generator (thread-safe counter)."""
+        """Per-request phase generator (thread-safe counter)."""
         g = torch.Generator(device=self.device)
         g.manual_seed(self.seed * 1000003 + next(self._count))
         return g
 
-    def _text(self, pinyin: str):
-        seq = frontend.serialize_inference(pinyin, self.cfg.acoustic.g2p)
-        n = seq.shape[0]
-        text = np.zeros((1, _round_up(max(n, 1), self.cfg.acoustic.text_bucket), 2),
-                        np.int64)
-        text[0, :n] = seq
+    def content_generator(self, data: bytes) -> torch.Generator:
+        """Phase generator seeded from the request's content: the same
+        payload always gives the same audio, however requests coalesce."""
+        g = torch.Generator(device=self.device)
+        g.manual_seed((self.seed << 32) | zlib.crc32(data))
+        return g
+
+    # ------------------------------------------------------------------
+    # acoustic stage
+    # ------------------------------------------------------------------
+    def _pad_rows(self, b: int, rows: int = 1) -> int:
+        """Rows to allocate for ``b`` requests: the next power of two, and at
+        least ``rows``.  A batching server passes its largest batch as
+        ``rows``, so that every cohort runs at one shape and a row's result
+        does not depend on how many requests shared its call (cuBLAS and
+        cuDNN pick their algorithms by shape)."""
+        return 1 << (max(b, rows) - 1).bit_length()
+
+    def _text_batch(self, pinyins: Sequence[str], rows: int = 1):
+        """pinyins -> text ids [B_pad, N_pad, 2] and lengths [B_pad]; fill
+        rows repeat row 0."""
+        seqs = [frontend.serialize_inference(p, self.cfg.acoustic.g2p) for p in pinyins]
+        n_pad = _round_up(max(max(s.shape[0] for s in seqs), 1),
+                          self.cfg.acoustic.text_bucket)
+        b_pad = self._pad_rows(len(seqs), rows)
+        text = np.zeros((b_pad, n_pad, 2), np.int64)
+        lens = np.zeros((b_pad,), np.int64)
+        for i in range(b_pad):
+            s = seqs[i if i < len(seqs) else 0]
+            text[i, :s.shape[0]] = s
+            lens[i] = s.shape[0]
         return (torch.from_numpy(text).to(self.device),
-                torch.tensor([n], device=self.device))
+                torch.from_numpy(lens).to(self.device))
 
     @torch.no_grad()
+    def _encode_batch(self, pinyins: Sequence[str], rows: int = 1):
+        """pinyins -> attention keys, values and mask of the padded batch."""
+        if not pinyins:
+            raise ValueError('at least one input is required')
+        return self.acoustic(*self._text_batch(pinyins, rows))
+
     def _encode(self, pinyin: str):
-        """pinyin -> attention keys, values and mask of the padded text."""
-        return self.acoustic(*self._text(pinyin))
+        return self._encode_batch([pinyin])
 
     @torch.no_grad()
     def _decode(self, enc):
-        """The whole decode in one kernel launch, stopping early per row."""
+        """The whole decode of every row in one kernel launch, each row
+        stopping early on its own."""
         return fused_decode_full(self.decoder, enc['keys'], enc['values'],
                                  enc['mask'], self.max_iters, early_exit=True)
 
     @torch.no_grad()
-    def _acoustic(self, pinyin: str):
-        """pinyin -> (normalised mag [1, steps*r, F-1], out_len [1])."""
-        out = self._decode(self._encode(pinyin))
-        return posnet_apply(self.acoustic, out['mel_outputs']), out['out_lengths']
+    def _acoustic_batch(self, pinyins: Sequence[str], rows: int = 1
+                        ) -> Dict[str, torch.Tensor]:
+        """pinyins -> the decode's outputs for the padded batch plus
+        'mag_outputs' [B_pad, steps*r, F-1] (normalised)."""
+        out = self._decode(self._encode_batch(pinyins, rows))
+        out['mag_outputs'] = posnet_apply(self.acoustic, out['mel_outputs'])
+        return out
 
+    def _natural_specs(self, out, b: int) -> List[np.ndarray]:
+        """Natural-scale specs [F, T_i] of the first ``b`` rows, each
+        trimmed to its stop and with its DC row restored."""
+        au = self.cfg.audio
+        lengths = out['out_lengths'][:b].tolist()
+        mags = out['mag_outputs'][:b, :max(lengths)]
+        nat = dsp.spec_to_natural_scale(mags, au).cpu()
+        return [dsp.fix_zero_dc(nat[i, :t].T, au).numpy() for i, t in enumerate(lengths)]
+
+    def synthesize_spec_batch(self, pinyins: List[str], rows: int = 1) -> List[np.ndarray]:
+        """Batched acoustic synthesis: one decode kernel launch for all
+        requests (at least ``rows`` rows, see ``_pad_rows``), each trimmed by
+        its own stop."""
+        return self._natural_specs(self._acoustic_batch(pinyins, rows), len(pinyins))
+
+    def synthesize_spec(self, pinyin: str) -> np.ndarray:
+        """Natural-scale spec [F, T] with DC restored, trimmed at the stop."""
+        return self.synthesize_spec_batch([pinyin])[0]
+
+    def synthesize_with_alignment(self, pinyin: str) -> Dict[str, Any]:
+        """The spec [F, T], the decoder alignment [n_text, T // r] trimmed to
+        the text length and the stop, and the frame count T."""
+        out = self._acoustic_batch([pinyin])
+        n = frontend.serialize_inference(pinyin, self.cfg.acoustic.g2p).shape[0]
+        t_real = int(out['out_lengths'][0])
+        r = self.cfg.acoustic.outputs_per_step
+        return {'spec': self._natural_specs(out, 1)[0],
+                'alignment': out['alignments'][0, :n, :t_real // r].cpu().numpy(),
+                'n_frames': t_real}
+
+    # ------------------------------------------------------------------
+    # vocoders
+    # ------------------------------------------------------------------
     @torch.no_grad()
-    def _template(self, s: torch.Tensor, theta=None):
-        """natural |STFT| [F, T] -> (log mel [M, T], Griffin-Lim template
-        [hop * T])."""
+    def _template(self, s: torch.Tensor, theta=None, generator=None):
+        """natural |STFT| [B, F, T] -> (log mel [B, M, T], Griffin-Lim
+        template [B, hop * T]); phase from ``theta`` or one generator per
+        row."""
         au = self.cfg.audio
         mel = torch.log(torch.clamp(dsp.mag_to_mel(s, au), min=dsp.EPS_AMP))
         log_mag = torch.log(torch.clamp(s, min=dsp.EPS_AMP))
         wavlen = au.hop_length * s.shape[-1]
         # length hop*T - 1 then pad 1 keeps the template's STFT at T frames
         tmpl = dsp.inv_log_mag(log_mag, au, length=wavlen - 1, theta=theta,
-                               generator=None if theta is not None else self._generator())
-        return mel, torch.nn.functional.pad(tmpl, (0, 1))
+                               generator=generator)
+        return mel, F.pad(tmpl, (0, 1))
 
     @torch.no_grad()
     def _generate(self, mel: torch.Tensor, tmpl: torch.Tensor) -> torch.Tensor:
-        """Neural vocoder at ``infer_dtype`` -> float32 wav [hop * T]."""
+        """Neural vocoder at ``infer_dtype``: mel [B, M, T], template
+        [B, hop * T] -> float32 wav [B, hop * T]."""
         with compute_dtype(self.infer_dtype, self.device):
-            wav = self.generator(mel.T[None], tmpl[None, :, None])
-        return wav[0, :, 0].float()
+            wav = self.generator(mel.transpose(1, 2), tmpl[..., None])
+        return wav[..., 0].float()
 
-    def _vocode_natural(self, s: torch.Tensor, theta=None) -> torch.Tensor:
-        """natural |STFT| [F, T] -> wav [hop * T] (template + generator)."""
-        return self._generate(*self._template(s, theta))
+    def _vocode_natural(self, s: torch.Tensor, theta=None, generator=None) -> torch.Tensor:
+        """natural |STFT| [B, F, T] -> wav [B, hop * T]."""
+        return self._generate(*self._template(s, theta, generator))
 
     def tts_fused(self, pinyin: str, theta: Optional[torch.Tensor] = None
                   ) -> np.ndarray:
         """pinyin -> wav (float32) for one request; ``theta`` optionally
         pins the Griffin-Lim initial phase [n_freq, max_iters * r]."""
         au = self.cfg.audio
-        mag, out_len = self._acoustic(pinyin)
-        s = dsp.fix_zero_dc(dsp.spec_to_natural_scale(mag[0].T, au), au)
-        wav = self._vocode_natural(s, theta)
-        return wav[:au.hop_length * int(out_len[0])].cpu().numpy()
-
-    def synthesize_spec(self, pinyin: str) -> np.ndarray:
-        """Natural-scale spec [F, T] with DC restored, trimmed at the stop."""
-        mag, out_len = self._acoustic(pinyin)
-        mag = mag[0, :int(out_len[0])].T
-        s = dsp.fix_zero_dc(dsp.spec_to_natural_scale(mag, self.cfg.audio),
-                            self.cfg.audio)
-        return s.cpu().numpy()
+        out = self._acoustic_batch([pinyin])
+        s = dsp.fix_zero_dc(dsp.spec_to_natural_scale(out['mag_outputs'][0].T, au), au)
+        wav = self._vocode_natural(s[None], None if theta is None else theta[None],
+                                   None if theta is not None else [self._generator()])
+        return wav[0, :au.hop_length * int(out['out_lengths'][0])].cpu().numpy()
 
     def _bucket_spec(self, spec: np.ndarray, bucket: int = 64) -> np.ndarray:
         """Pad [F, T] to a frame bucket with near-silence; callers trim the
@@ -173,28 +247,108 @@ class Synthesizer:
         pad = np.full((spec.shape[0], t_pad - t), float(spec.min()), spec.dtype)
         return np.concatenate([spec, pad], axis=1)
 
+    def vocode_batch(self, specs: List[np.ndarray],
+                     generators: Optional[Sequence[torch.Generator]] = None,
+                     thetas: Optional[Sequence[Any]] = None,
+                     rows: int = 1) -> List[np.ndarray]:
+        """Natural-scale specs (either orientation) -> neural wavs: one
+        Griffin-Lim template and one generator forward for the batch (at
+        least ``rows`` rows, see ``_pad_rows``).
+        Specs pad to a common 64-frame bucket with their own near-silence
+        and each wav trims back to its spec's length.  Each row's phase is
+        drawn from ``generators[i]`` or given as ``thetas[i]``
+        [n_freq, T_bucket]; by default from the request counter."""
+        if not specs:
+            return []
+        for name, per_row in (('generators', generators), ('thetas', thetas)):
+            if per_row is not None and len(per_row) != len(specs):
+                raise ValueError(f'{len(per_row)} {name} for {len(specs)} specs')
+        au = self.cfg.audio
+        oriented = []
+        for s in specs:
+            s = np.asarray(s, np.float32)
+            if s.shape[0] not in (au.n_freq, au.n_freq - 1):
+                s = s.T
+            oriented.append(dsp.fix_zero_dc(torch.from_numpy(np.ascontiguousarray(s)),
+                                            au).numpy())
+        t_real = [s.shape[1] for s in oriented]
+        t_pad = _round_up(max(max(t_real), 64), 64)
+        b = len(oriented)
+        mags = np.zeros((self._pad_rows(b, rows), au.n_freq, t_pad), np.float32)
+        for i, s in enumerate(oriented):
+            mags[i, :, :s.shape[1]] = s
+            mags[i, :, s.shape[1]:] = float(s.min())
+        mags[b:] = mags[:1]                       # fill rows = real work
+        if thetas is not None:
+            theta = torch.stack([torch.as_tensor(t, dtype=torch.float32)
+                                 for t in thetas]).to(self.device)
+        else:
+            gens = generators if generators is not None else [
+                self._generator() for _ in range(b)]
+            theta = dsp.random_phase((b, au.n_freq, t_pad), gens, self.device)
+        theta = torch.cat([theta, theta[:1].expand(mags.shape[0] - b, -1, -1)])
+        wavs = self._vocode_natural(torch.from_numpy(mags).to(self.device), theta)
+        wavs = wavs[:b].cpu().numpy()
+        return [wavs[i, :au.hop_length * t_real[i]] for i in range(b)]
+
     def vocode(self, spec: np.ndarray, theta: Optional[torch.Tensor] = None
                ) -> np.ndarray:
         """Natural-scale spec (either orientation) -> neural wav."""
-        au = self.cfg.audio
-        if spec.shape[0] not in (au.n_freq, au.n_freq - 1):
-            spec = spec.T
-        s = dsp.fix_zero_dc(torch.as_tensor(np.asarray(spec, np.float32)), au)
-        t_real = s.shape[1]
-        s = torch.from_numpy(self._bucket_spec(s.numpy())).to(self.device)
-        wav = self._vocode_natural(s, theta)
-        return wav[:au.hop_length * t_real].cpu().numpy()
+        return self.vocode_batch([spec], thetas=None if theta is None else [theta])[0]
 
-    def tts(self, text: str, neural: bool = True) -> np.ndarray:
-        """Text (numbered pinyin, or kanji with a pinyin provider) -> wav."""
-        if not neural:
-            raise NotImplementedError('Griffin-Lim-only synthesis is not ported yet')
+    def _griffin_lim(self, spec: np.ndarray, theta=None) -> np.ndarray:
+        """natural spec [F, T] -> the acoustic service's Griffin-Lim wav
+        [hop * (T - 1)] on the host."""
+        s = torch.from_numpy(np.ascontiguousarray(spec, np.float32)).to(self.device)
+        return dsp.inv_spec_acoustic(
+            s, self.cfg.audio, theta=theta,
+            generator=None if theta is not None else self._generator()).cpu().numpy()
+
+    def _gl_wav(self, spec: np.ndarray, trim: bool = True, theta=None) -> np.ndarray:
+        """natural spec [F, T] -> Griffin-Lim wav over the 64-frame bucket
+        (``theta`` [n_freq, T_bucket]), cut to hop * T, silence-trimmed."""
+        t_real = spec.shape[1]
+        wav = self._griffin_lim(self._bucket_spec(spec), theta)
+        wav = wav[:self.cfg.audio.hop_length * t_real]
+        return features.trim_silence(wav, self.cfg.audio) if trim else wav
+
+    def synthesize_wav(self, pinyin: str, trim: bool = True,
+                       theta: Optional[torch.Tensor] = None) -> np.ndarray:
+        """Internal Griffin-Lim vocoding (reference ``synth.py:80-83``)."""
+        return self._gl_wav(self.synthesize_spec(pinyin), trim, theta)
+
+    # ------------------------------------------------------------------
+    # text surfaces
+    # ------------------------------------------------------------------
+    def clauses(self, text: str) -> List[str]:
+        """Numbered pinyin as one clause; kanji normalised, clause-split and
+        converted by the pinyin provider."""
         if frontend.looks_like_pinyin(text):
-            segs: List[str] = [text.strip().lower()]
-        else:
-            segs = [self.kanji2pinyin(s) for s in frontend.normalize_text(text)]
-        if len(segs) == 1:
-            return self.tts_fused(segs[0])
-        return self.vocode(np.concatenate([self.synthesize_spec(p) for p in segs],
-                                          axis=1))
+            return [text.strip().lower()]
+        return [self.kanji2pinyin(s) for s in frontend.normalize_text(text)]
 
+    def tts_batch(self, texts: List[str], neural: bool = True,
+                  generators: Optional[Sequence[torch.Generator]] = None,
+                  thetas: Optional[Sequence[Any]] = None) -> List[np.ndarray]:
+        """Batched text -> wav: one decode launch for all texts (each text's
+        clauses joined into one utterance), then one vocoder batch, or a
+        Griffin-Lim wav per text (``thetas[i]`` [n_freq, T_bucket])."""
+        specs = self.synthesize_spec_batch([' '.join(self.clauses(t)) for t in texts])
+        if neural:
+            return self.vocode_batch(specs, generators, thetas)
+        return [self._gl_wav(s, theta=None if thetas is None else thetas[i])
+                for i, s in enumerate(specs)]
+
+    def tts(self, text: str, neural: bool = True,
+            theta: Optional[torch.Tensor] = None) -> np.ndarray:
+        """Text (numbered pinyin, or kanji with a pinyin provider) -> wav.
+        One neural clause takes ``tts_fused``; several are synthesized one
+        by one and vocoded together; ``neural=False`` vocodes with
+        Griffin-Lim and trims the silence."""
+        clauses = self.clauses(text)
+        if neural and len(clauses) == 1:
+            return self.tts_fused(clauses[0], theta)
+        spec = np.concatenate([self.synthesize_spec(p) for p in clauses], axis=1)
+        if neural:
+            return self.vocode(spec, theta)
+        return features.trim_silence(self._griffin_lim(spec, theta), self.cfg.audio)
