@@ -9,15 +9,21 @@ exit:
 1. The card's name and power limit (``nvidia-smi``), then the build of every
    CUDA source in ``transtacos_retunegan_tpu_torch/csrc`` with the
    ``-Xptxas -v`` report (registers, shared memory, spills).
-2. Each kernel against its plain PyTorch version.  The decode kernels at
-   the full default width (H=512, A=128, D=256, r=5, M=80, 2 GRUs, prenet
-   256), N in {48, 128}, B in {1, 4}, 300 steps, float32 and bf16 weights:
-   ``decode_step`` looped, ``decode_full`` with and without early exit;
-   every case without a stop, and the B=4 cases again with rows that stop
-   at different steps.  The LSA step at the JAX test's shape and the
-   decoder's serving shapes, with short texts and an all-masked row.
+2. Each kernel against its plain PyTorch version.  The decode kernels run
+   a cooperative grid of one block per SM (G, printed first, must exceed
+   B).  At the full default width (H=512, A=128, D=256, r=5, M=80, 2 GRUs,
+   prenet 256), N in {48, 128}, B in {1, 4}, 300 steps, float32 and bf16
+   weights: ``decode_step`` looped, ``decode_full`` with and without early
+   exit; every case without a stop, and the B=4 cases again with rows that
+   stop at different steps.  Then bf16 rows decoded at B=8 against the same
+   rows decoded at B=1, bit for bit, by both kernels.  The LSA step at the
+   JAX test's shape and the decoder's serving shapes, with short texts and
+   an all-masked row.
 3. Timing with CUDA events after warm-up (decode at B=1, N=48, 300 steps;
-   LSA step at B=8, N=64), beside the bound computed from the shapes.
+   ``decode_full`` also at the cohort shapes B=8, N in {16, 64}; LSA step
+   at B=8, N=64), beside the bound computed from the shapes; each decode
+   kernel's device time alone (torch.profiler); and the barrier-only
+   floor: the same grid and barriers per step with no math.
 4. The main path one request at a time: ``Synthesizer(device='cuda')`` at
    the default ``Config()`` with seeded weights.  Each request gets a stop
    head under which it stops after the steps its syllables take at the
@@ -102,6 +108,8 @@ BATCH_REPS = 5
 LSA_CASES = ((4, 128, 128, 256, 31), (1, 16, 128, 256, 31), (1, 64, 128, 256, 31),
              (8, 16, 128, 256, 31), (8, 64, 128, 256, 31), (8, 64, 128, 256, 5))
 LSA_TIMED = (8, 64, 128, 256, 31)
+# decode_full timing: one request (B=1, N=48) and the cohort shapes
+DECODE_TIMED = ((1, 48), (8, 16), (8, 64))
 # tests/test_ops.py's bounds on (align, cum, ctx); float32 sums in another order
 LSA_TOL = (1e-5, 1e-5, 1e-4)
 
@@ -225,6 +233,57 @@ def err_text(errs, dtype) -> str:
             + f' abs={errs["abs"]:.2e} {"ok" if within(errs, dtype) else "FAIL"}')
 
 
+def grid_check(fd, device) -> int:
+    """One ``decode_full`` launch at B=1: the grid is cooperative, one
+    block per SM, so G > B.  Returns G."""
+    fp = fd.fold_params(full_width_cell(device), torch.bfloat16)
+    mem = memory(fp.dims, 1, 48, device, seed=1)
+    fd.decode_full(fp, *mem, 2)
+    torch.cuda.synchronize()
+    g = fd.LAST_GRID['decode_full']
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    log(f'  decode_full launched as a cooperative grid of G={g} blocks x {fd.THREADS} '
+        f'threads for B=1 ({sms} SMs), {fd.barriers_per_step(fp.dims)} grid barriers '
+        f'per step, {fd.smem_bytes(fp.dims, 48, 1, g, 2)} bytes of shared memory per block')
+    if not (g and g > 1 and g == fp.blocks):
+        raise AssertionError(f'decode_full grid {g}, expected {fp.blocks} > B')
+    return g
+
+
+def batch_invariance(fd, device, b: int = 8, n: int = 64, steps: int = STEPS):
+    """bf16 rows decoded in a batch of ``b`` against the same rows decoded
+    alone: ``decode_full`` over ``steps`` steps with rows that stop at
+    different steps and early exit, ``decode_step`` looped over 20 steps
+    from a zero carry.  Bit for bit."""
+    fp = fd.fold_params(full_width_cell(device), torch.bfloat16)
+    mem = memory(fp.dims, b, n, device, seed=11)
+    found = None
+    for gain in (1.0, 10.0, 30.0):
+        fp = fd.fold_params(full_width_cell(device), torch.bfloat16)
+        fp.w['ws'].mul_(gain)
+        found = distinct_stop_bias(stop_logits(fd, fp, mem, steps, fd.decode_full))
+        if found:
+            break
+    if found:
+        fp.f['bs'].fill_(-found[0])
+    else:
+        fp.f['bs'].fill_(-20.0)
+    row = lambda i: tuple(x[i:i + 1].contiguous() for x in mem)        # noqa: E731
+    full = fd.fused_decode_full(fp, *mem, steps, early_exit=True)
+    looped = fd.fused_decode(fp, *mem, 20)
+    same_full = [all(torch.equal(a[k][0], full[k][i]) for k in full)
+                 for i, a in enumerate(fd.fused_decode_full(fp, *row(i), steps, early_exit=True)
+                                       for i in range(b))]
+    same_step = [all(torch.equal(a[k][0], looped[k][i]) for k in looped)
+                 for i, a in enumerate(fd.fused_decode(fp, *row(i), 20) for i in range(b))]
+    torch.cuda.synchronize()
+    log(f'  B={b} N={n} bf16 rows against the same rows at B=1, bit for bit: decode_full '
+        f'({steps} steps, early exit, lengths {full["out_lengths"].tolist()}) '
+        f'{sum(same_full)}/{b}; decode_step (20 steps) {sum(same_step)}/{b}')
+    if not (all(same_full) and all(same_step)):
+        raise AssertionError('a row decoded in a batch differs from the row decoded alone')
+
+
 def compare_kernels(fd, device):
     cell = full_width_cell(device)
     worst = {'decode_step': 0.0, 'decode_full': 0.0}
@@ -296,6 +355,22 @@ def cuda_ms(fn, reps: int, warm: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, calls: int, kernel: str):
+    """Mean device time per call of the kernels whose name contains
+    ``kernel``, from torch.profiler over ``calls`` calls of ``fn`` (without
+    the wrapper's host work); None if the profiler saw no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = [getattr(e, 'device_time_total', 0) or getattr(e, 'cuda_time_total', 0)
+          for e in prof.key_averages() if kernel in e.key]
+    return sum(us) / 1e3 / calls if us and sum(us) > 0 else None
+
+
 def step_cost(fp, b: int, n: int):
     """(matmul operations, other operations) of one decode step."""
     d = fp.dims
@@ -311,13 +386,14 @@ def bound(fp, b: int, n: int, steps: int, carry_bytes: int):
     written once over the memory rate, or the operations over the peak rate
     of their type, whichever is larger.  Returns (ms, 'bytes'|'operations')."""
     d = fp.dims
-    io_bytes = (fp.wbuf.numel() * fp.wbuf.element_size() + fp.fbuf.numel() * 4
+    weights = sum(t.numel() for t in fp.w.values())         # each weight once
+    io_bytes = (weights * fp.wsrc.element_size() + fp.fbuf.numel() * 4
                 + 4 * b * n * (d.a + d.d + 1)                      # keys, values, mask
                 + 4 * steps * b * (d.r * d.n_mel + d.r + n + 1)    # emissions
                 + carry_bytes)
     mm, other = step_cost(fp, b, n)
     t_bytes = io_bytes / HBM_BYTES_PER_S
-    t_ops = steps * (mm / PEAK_OPS[fp.wbuf.dtype] + other / PEAK_OPS[torch.float32])
+    t_ops = steps * (mm / PEAK_OPS[fp.wsrc.dtype] + other / PEAK_OPS[torch.float32])
     return (1e3 * max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations')
 
 
@@ -345,6 +421,22 @@ def time_kernels(fd, device):
             + (f', {STEPS} steps' if k == 'decode_full' else ', one step'))
     log(f'  decode_step looped over a {STEPS}-step decode: '
         f'{STEPS * step_ms:.3f} ms kernel, {STEPS * step_plain:.3f} ms plain')
+    alone = {'decode_step': device_ms(lambda: fd.decode_step(fp, prev, ctx, hs, cum, *mem, fin),
+                                      50, 'decode_step_kernel'),
+             'decode_full': device_ms(lambda: fd.decode_full(fp, *mem, STEPS), 3,
+                                      'decode_full_kernel')}
+    log('  device time of the kernel alone (torch.profiler), B=1 N=48: ' + ', '.join(
+        f'{k} ' + ('not measured' if v is None else f'{v:.4f} ms') for k, v in alone.items()))
+    per_step = fd.barriers_per_step(d)
+    for b, n in DECODE_TIMED:
+        mem = memory(fp.dims, b, n, device, seed=7)
+        ms = full_ms if (b, n) == (1, 48) else cuda_ms(
+            lambda: fd.decode_full(fp, *mem, STEPS), 5)
+        floor = cuda_ms(lambda: fd.grid_barriers(fp, b, n, STEPS * per_step, device), 5)
+        log(f'  decode_full B={b} N={n:3d}: {ms:.4f} ms per {STEPS}-step decode, '
+            f'{1e3 * ms / STEPS:.2f} us per step; barrier-only floor ({per_step} grid '
+            f'barriers per step, G={fd.LAST_GRID["decode_full"]}): {floor:.4f} ms, '
+            f'{1e3 * floor / STEPS:.2f} us per step ({100 * floor / ms:.0f}%)')
     return res
 
 
@@ -649,8 +741,8 @@ def plan_cohorts(fd, synth):
 def cohort_checks(fd, synth, targets):
     """Per cohort, outside the counted run: out_lengths against the plan
     and the plain decode of the same cohort; each row's mel bit-identical
-    to that row decoded alone from the same encoder output (one block per
-    row runs the same code whatever B is); each text encoded and decoded
+    to that row decoded alone from the same encoder output (the kernel
+    takes each row's sums in the same order whatever B is); each text encoded and decoded
     alone at the batching server's fixed 8 rows bit-identical to its row in
     the cohort of 8; the same text encoded alone at 1 row (the encoder's
     sums may differ in their last bits between batch shapes, which the
@@ -938,7 +1030,9 @@ def main() -> int:
     log(f'  built in {time.perf_counter() - t0:.1f} s')
 
     log('== phase 2: kernels against their plain versions, full width')
+    grid_check(fd, device)
     worst = compare_kernels(fd, device)
+    batch_invariance(fd, device)
     worst['lsa_step'] = compare_lsa(lk, device)
 
     log('== phase 3: timing (CUDA events)')

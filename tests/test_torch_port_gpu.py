@@ -47,7 +47,7 @@ def _cfg():
         decoder_layers=3, encoder_depth=32))
 
 
-def _problem(device, dtype, stop_bias=-20.0):
+def _problem(device, dtype, stop_bias=-20.0, blocks=None, b=B):
     cell = seeded_init(DecoderCell(_cfg()), 3)
     g = torch.Generator().manual_seed(4)
     with torch.no_grad():
@@ -55,10 +55,11 @@ def _problem(device, dtype, stop_bias=-20.0):
             if name.endswith('bias'):
                 p.copy_(0.3 * torch.randn(p.shape, generator=g))
         cell.stop_projection.bias.fill_(stop_bias)
-    fp = fd.fold_params(cell.to(device), dtype)
+    fp = fd.fold_params(cell.to(device), dtype, blocks=blocks)
     r = np.random.RandomState(5)
-    mask = (np.arange(N)[None] < np.asarray([N, N - 5])[:, None]).astype(np.float32)
-    mem = (0.3 * r.randn(B, N, 16), 0.3 * r.randn(B, N, 32) * mask[..., None], mask)
+    lens = np.maximum(N - 5 * np.arange(b), 1)
+    mask = (np.arange(N)[None] < lens[:, None]).astype(np.float32)
+    mem = (0.3 * r.randn(b, N, 16), 0.3 * r.randn(b, N, 32) * mask[..., None], mask)
     return fp, tuple(torch.tensor(x, dtype=torch.float32, device=device) for x in mem)
 
 
@@ -127,6 +128,55 @@ def test_wrapper_rejects_bad_operands(cuda):
                        mask, fin)
     with pytest.raises(ValueError, match='GRU states'):
         fd.decode_step(fp, prev, ctx, hs[:1], cum, keys, values, mask, fin)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_decode_full_grid_of_all_sms_reports_its_size(cuda, dtype):
+    """One block per SM, so G > B; at these widths most blocks own no
+    column of several matrices (wq has 16 columns for 132 blocks)."""
+    fp, mem = _problem(cuda, dtype)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert fp.blocks == sms > B
+    empty = sum(not list(dict((k, c) for k, c, _ in fd._slice(fp.dims, g, fp.blocks)[0])['wq'])
+                for g in range(fp.blocks))
+    assert empty == fp.blocks - fp.dims.a
+    got = fd.fused_decode_full(fp, *mem, STEPS, early_exit=True)
+    assert fd.LAST_GRID['decode_full'] == sms
+    _close(got, fd.to_outputs(fp, *fd.decode_full_plain(fp, *mem, STEPS, True)), dtype)
+
+
+@pytest.mark.parametrize('blocks', [3, 7])
+def test_kernels_on_a_grid_that_does_not_divide_the_widths(cuda, blocks):
+    fp, mem = _problem(cuda, torch.bfloat16, blocks=blocks)
+    got = fd.fused_decode_full(fp, *mem, STEPS)
+    assert fd.LAST_GRID['decode_full'] == blocks
+    ref = fd.to_outputs(fp, *fd.decode_full_plain(fp, *mem, STEPS))
+    _close(got, ref, torch.bfloat16)
+    _close(fd.fused_decode(fp, *mem, STEPS), ref, torch.bfloat16)
+    assert fd.LAST_GRID['decode_step'] == blocks
+
+
+def test_batch_invariance_bf16(cuda):
+    """A row decoded in a batch of 8 is bit-identical to the same row
+    decoded alone, by both kernels (no atomics; each sum is taken by the
+    same lanes in the same order whatever B is)."""
+    b = 8
+    fp, mem = _problem(cuda, torch.bfloat16, stop_bias=0.0, b=b)
+    full = fd.decode_full(fp, *mem, STEPS, early_exit=True)
+    g = torch.Generator().manual_seed(8)
+    d = fp.dims
+    rnd = lambda *s: torch.randn(*s, generator=g).to(cuda)      # noqa: E731
+    carry = (rnd(b, d.n_mel), rnd(b, d.d), tuple(rnd(b, d.h) for _ in range(d.n_gru)),
+             rnd(b, N).abs(), (torch.arange(b, device=cuda) % 3 == 0).float()[:, None])
+    prev, ctx, hs, cum, fin = carry
+    step = fd.decode_step(fp, prev, ctx, hs, cum, *mem, fin)
+    for i in range(b):
+        row = lambda x: x[i:i + 1].contiguous()                  # noqa: E731
+        alone = fd.decode_full(fp, *map(row, mem), STEPS, early_exit=True)
+        assert all(torch.equal(a[:, 0], f[:, i]) for a, f in zip(alone, full)), i
+        outs, hs1 = fd.decode_step(fp, row(prev), row(ctx), tuple(map(row, hs)), row(cum),
+                                   *map(row, mem), row(fin))
+        assert all(torch.equal(a[0], f[i]) for a, f in zip(outs + hs1, step[0] + step[1])), i
 
 
 def _small_cfg():

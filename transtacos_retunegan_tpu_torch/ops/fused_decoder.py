@@ -1,21 +1,37 @@
 """Fused autoregressive decode: CUDA kernels and their plain versions.
 
 Port of ``transtacos_retunegan_tpu/ops/fused_decoder.py``.  The decoder
-weights are packed once (``fold_params``) into two contiguous buffers: the
-matmul weights as ``[in, out]`` matrices in bf16 (serving) or float32
-(tight comparisons), and the float32 biases, folded location matrix and
-energy vector.  Two kernels in ``csrc/fused_decoder.cu`` consume them:
+weights are packed once (``fold_params``): the matmul weights as ``[in,
+out]`` matrices in bf16 (serving) or float32 (tight comparisons) in
+``wsrc``, the float32 biases, folded location matrix and energy vector in
+``fbuf``.  Two kernels in ``csrc/fused_decoder.cu`` consume them:
 
-* ``decode_step``: one decode step per launch (the Pallas
-  ``_make_step_kernel``); ``fused_decode`` drives it from a torch loop.
 * ``decode_full``: the whole decode in one launch (the Pallas
   ``_make_full_kernel``); ``fused_decode_full`` is the serving decode, with
-  ``early_exit`` skipping the step math of rows that have finished.
+  ``early_exit`` skipping the work of rows that have finished.
+* ``decode_step``: one decode step per launch (the Pallas
+  ``_make_step_kernel``); ``fused_decode`` drives it from a torch loop, for
+  shapes past the shared-memory fit check.
 
-Each wrapper runs its plain PyTorch version (``decode_step_plain``,
-``decode_full_plain``) on CPU tensors and launches its kernel on CUDA
-tensors; there is no fallback from one to the other.  ``LAUNCHES`` counts
-kernel launches.
+Both run a persistent cooperative grid of ``fp.blocks`` blocks (one per SM)
+and split every weight matrix by output columns over the blocks, the GRU
+matrices by hidden unit (columns c, H+c, 2H+c together).  ``fold_params``
+pre-tiles the weights into ``wbuf`` so that each block's slice is one
+contiguous piece (``_slice``; the CUDA ``slice`` computes the same layout);
+``decode_full`` holds its slice in shared memory for the whole decode,
+``decode_step`` reads it from L2.  What bounds the design is about
+``barriers_per_step`` grid barriers per step plus the longest phase, not
+bytes; a later PR would add ``mma.sync``/``wgmma`` over B rows padded to 8
+or 16, a TMA bulk copy of the slices and fewer barriers per step.
+
+``w`` holds named ``[in, out]`` views of ``wsrc``; edits to them in place
+(a stop head, say) reach ``wbuf`` at the next launch, which re-tiles when
+``wsrc`` has changed.  Each wrapper runs its plain PyTorch version
+(``decode_step_plain``, ``decode_full_plain``) on CPU tensors and launches
+its kernel on CUDA tensors; there is no fallback from one to the other.  A
+launch error, a grid-barrier timeout or a layout mismatch raises.
+``LAUNCHES`` counts kernel launches and ``LAST_GRID`` holds the number of
+blocks of each kernel's last launch.
 """
 
 from __future__ import annotations
@@ -23,8 +39,9 @@ from __future__ import annotations
 import ctypes
 import functools
 from dataclasses import dataclass
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..models.decoder import out_lengths
@@ -33,13 +50,17 @@ from .build import device_kind, ptr, stream
 from .lsa_kernel import fold_location_params, lsa_step_plain
 
 LAUNCHES: Dict[str, int] = {'decode_step': 0, 'decode_full': 0}
+LAST_GRID: Dict[str, Optional[int]] = {'decode_step': None, 'decode_full': None}
 
 # Hopper: 227 KB of shared memory per block.  fused_decode_full takes the
-# per-step path when one row's working set does not fit (tests set this to
-# 0 to pin that path).
+# per-step path when a block's slice and activations do not fit (tests set
+# this to 0 to pin that path).
 SMEM_BUDGET_BYTES = 227 * 1024
 THREADS = 512
 MAX_PRENET = MAX_GRU = 4
+RB = 4                      # rows per GEMV work item (RB in the CUDA source)
+SYNC_FLOATS = 4             # barrier counter and error word ahead of the scratch
+ERRORS = {1: 'a grid barrier timed out'}
 
 
 class Dims(NamedTuple):
@@ -55,21 +76,26 @@ class Dims(NamedTuple):
 
 @dataclass(frozen=True)
 class FoldedParams:
-    wbuf: torch.Tensor                  # matmul weights, bf16 or float32
+    wsrc: torch.Tensor                  # matmul weights, bf16 or float32
+    wbuf: torch.Tensor                  # the same, tiled per block (_tile_index)
     fbuf: torch.Tensor                  # float32 vectors and location matrix
-    w: Dict[str, torch.Tensor]          # named [in, out] views into wbuf
+    w: Dict[str, torch.Tensor]          # named [in, out] views into wsrc
     f: Dict[str, torch.Tensor]          # named views into fbuf
-    woff: Dict[str, int]                # element offsets into wbuf
+    woff: Dict[str, int]                # element offsets into wsrc
     foff: Dict[str, int]                # element offsets into fbuf
     dims: Dims
+    blocks: int                         # G, the kernels' grid
+    tiles: torch.Tensor                 # wbuf[i] = wsrc[tiles[i]]
+    bases: torch.Tensor                 # int64 [blocks]: block g's slice in wbuf
+    tiled: Dict[str, int]               # wsrc's version when wbuf was tiled
 
 
-def _pack(named, dtype, device):
+def _pack(named, dtype, device, extra=0):
     offs, pos = {}, 0
     for k, t in named:
         offs[k] = pos
         pos += (t.numel() + 7) // 8 * 8             # 16-byte aligned pieces
-    buf = torch.zeros(max(pos, 8), dtype=dtype, device=device)
+    buf = torch.zeros(max(pos + extra, 8), dtype=dtype, device=device)
     views = {}
     for k, t in named:
         v = buf[offs[k]:offs[k] + t.numel()].view(t.shape)
@@ -79,8 +105,10 @@ def _pack(named, dtype, device):
 
 
 @torch.no_grad()
-def fold_params(cell, dtype: torch.dtype = torch.bfloat16) -> FoldedParams:
-    """Pack a ``models.decoder.DecoderCell`` into kernel operands.
+def fold_params(cell, dtype: torch.dtype = torch.bfloat16,
+                blocks: Optional[int] = None) -> FoldedParams:
+    """Pack a ``models.decoder.DecoderCell`` into kernel operands, tiled
+    for a grid of ``blocks`` (default: the card's SM count; 1 on the CPU).
 
     The location conv's bias is a constant term on the pre-tanh energy
     (``Dense(conv(x) + b_c) == conv'(x) + b_c @ W``), so it folds into the
@@ -114,14 +142,97 @@ def fold_params(cell, dtype: torch.dtype = torch.bfloat16) -> FoldedParams:
                 ('bf', m['frame_projection'].bias.float()),
                 ('bs', m['stop_projection'].bias.float())]
     device = cell.rnn_in_proj.weight.device
-    wbuf, w, woff = _pack(named_w, dtype, device)
+    wsrc, w, woff = _pack(named_w, dtype, device, extra=8)     # + a zero slot
     fbuf, f, foff = _pack(named_f, torch.float32, device)
     h = w['wi0'].shape[0]
     dims = Dims(n_mel=w['pre0'].shape[0], d=w['wx'].shape[0] - pre[-1].out_features,
                 h=h, a=w['wq'].shape[1], r=f['bs'].shape[0],
                 kwin=f['loc'].shape[0], prenet=tuple(l.out_features for l in pre),
                 n_gru=len(grus))
-    return FoldedParams(wbuf, fbuf, w, f, woff, foff, dims)
+    if blocks is None:
+        blocks = (torch.cuda.get_device_properties(device).multi_processor_count
+                  if device.type == 'cuda' else 1)
+    zero = wsrc.numel() - 8
+    tiles = torch.from_numpy(_tile_index(dims, tuple(sorted(woff.items())), blocks, zero))
+    tiles = tiles.to(device)
+    sizes = _grid(dims, blocks)[0]
+    bases = torch.tensor([0] + list(np.cumsum(sizes[:-1])), dtype=torch.int64, device=device)
+    fp = FoldedParams(wsrc, torch.empty(tiles.numel(), dtype=dtype, device=device), fbuf,
+                      w, f, woff, foff, dims, blocks, tiles, bases, {})
+    retile(fp)
+    return fp
+
+
+# ---------------------------------------------------------------------------
+# the per-block tiling (mirrors slice() in the CUDA source)
+# ---------------------------------------------------------------------------
+
+def _span(g: int, blocks: int, n: int) -> Tuple[int, int]:
+    """Items [lo, hi) of n that block g of ``blocks`` owns."""
+    return g * n // blocks, (g + 1) * n // blocks
+
+
+def _up8(n: int) -> int:
+    return (n + 7) // 8 * 8
+
+
+def _slice(dims: Dims, g: int, blocks: int):
+    """Block g's slice of the weights: [(name, columns of the [in, out]
+    matrix, in)] in slice order (each piece column-major, padded to 8
+    elements) and the slice's size in elements.  The GRU pieces hold the
+    block's hidden units unit-major, gates r|z|n of each unit together; ws
+    is whole in every block."""
+    h, d = dims.h, dims.d
+    pieces, k_in = [], dims.n_mel
+    for i, out in enumerate(dims.prenet):
+        pieces.append((f'pre{i}', range(*_span(g, blocks, out)), k_in))
+        k_in = out
+    units = range(*_span(g, blocks, h))
+    pieces.append(('wx', units, k_in + d))
+    gates = [gate * h + u for u in units for gate in range(3)]
+    for j in range(dims.n_gru):
+        pieces += [(f'wi{j}', gates, h), (f'wh{j}', gates, h)]
+    pieces += [('wq', range(*_span(g, blocks, dims.a)), h),
+               ('wf', range(*_span(g, blocks, dims.r * dims.n_mel)), h + d),
+               ('ws', range(dims.r), h + d)]
+    return pieces, sum(_up8(len(cols) * k) for _, cols, k in pieces)
+
+
+@functools.lru_cache(maxsize=16)
+def _grid(dims: Dims, blocks: int) -> Tuple[Tuple[int, ...], int]:
+    """The size of every block's slice (elements) and the most GRU units
+    that a block owns."""
+    slices = [_slice(dims, g, blocks) for g in range(blocks)]
+    numax = max(len(dict((k, c) for k, c, _ in p)['wx']) for p, _ in slices)
+    return tuple(size for _, size in slices), numax
+
+
+@functools.lru_cache(maxsize=8)
+def _tile_index(dims: Dims, woff: Tuple[Tuple[str, int], ...], blocks: int,
+                zero: int) -> np.ndarray:
+    """For every element of the tiled buffer, its index in ``wsrc`` (the
+    padding points at ``zero``, a zero element): block after block, each
+    block's pieces in ``_slice`` order."""
+    offs = dict(woff)
+    outs = {'wx': dims.h, 'wq': dims.a, 'wf': dims.r * dims.n_mel, 'ws': dims.r}
+    outs.update({f'pre{i}': p for i, p in enumerate(dims.prenet)})
+    outs.update({f'w{s}{j}': 3 * dims.h for j in range(dims.n_gru) for s in 'ih'})
+    parts = []
+    for g in range(blocks):
+        for name, cols, k in _slice(dims, g, blocks)[0]:
+            idx = (offs[name] + np.asarray(cols, np.int64)[:, None]
+                   + outs[name] * np.arange(k, dtype=np.int64)[None, :]).reshape(-1)
+            parts += [idx, np.full(_up8(idx.size) - idx.size, zero, np.int64)]
+    return np.concatenate(parts).astype(np.int32)
+
+
+def retile(fp: FoldedParams) -> None:
+    """Bring ``wbuf`` up to date with ``wsrc`` if ``wsrc`` (or a view of
+    it in ``w``) changed in place since the last tiling (torch bumps a
+    tensor's version counter on every in-place write)."""
+    if fp.tiled.get('version') != fp.wsrc._version:
+        torch.index_select(fp.wsrc, 0, fp.tiles, out=fp.wbuf)
+        fp.tiled['version'] = fp.wsrc._version
 
 
 # ---------------------------------------------------------------------------
@@ -202,33 +313,54 @@ def decode_full_plain(fp: FoldedParams, keys, values, mask, steps: int,
 # CUDA kernels
 # ---------------------------------------------------------------------------
 
-def smem_bytes(dims: Dims, n: int) -> int:
-    """Shared memory of one block (``layout`` in the CUDA source)."""
-    nt = THREADS
+def barriers_per_step(dims: Dims) -> int:
+    """Grid barriers in one step: one per dependent phase."""
+    return len(dims.prenet) + dims.n_gru + 5
+
+
+@functools.lru_cache(maxsize=64)
+def smem_bytes(dims: Dims, n: int, b: int, blocks: int, wsize: int,
+               staged: bool = True) -> int:
+    """Shared memory of one block (``layout`` in the CUDA source): the
+    largest block's weight slice (``staged``: decode_full only) in 16-byte
+    units, then float32 activations for ``b`` rows of ``n`` text positions."""
     up4 = lambda k: (k + 3) // 4 * 4                              # noqa: E731
+    sizes, numax = _grid(dims, blocks)
+    wbytes = (max(sizes) * wsize + 15) // 16 * 16 if staged else 0
     pmax = max(dims.prenet)
-    vmax = max(dims.n_mel, pmax, dims.prenet[-1] + dims.d, dims.h + dims.d)
-    rm = dims.r * dims.n_mel
-    floats = (up4(dims.n_gru * dims.h) + up4(dims.d) + up4(n) + up4(dims.n_mel)
-              + 4 + up4(pmax) + up4(vmax) + up4(dims.h) + 2 * up4(3 * dims.h)
-              + up4(dims.a) + up4(dims.kwin * dims.a) + up4(n + dims.kwin - 1)
-              + up4(n) + up4(dims.d) + up4(rm + dims.r) + up4(nt))
-    return 4 * floats
+    vmax = max(dims.n_mel + dims.n_gru * dims.h, pmax, dims.prenet[-1] + dims.d,
+               dims.h + dims.d)
+    bp = (b + RB - 1) // RB * RB
+    floats = (up4(dims.kwin * dims.a)                 # location matrix
+              + bp * up4(vmax)                        # rounded GEMV inputs per row
+              + (1 + dims.n_gru) * bp * up4(3 * numax)  # gi, gh of the block's units
+              + bp * up4(n)                           # alignment
+              + bp * up4(dims.r)                      # stop probabilities
+              + 3 * up4(b) + 4                        # fin, rows, slot; misc
+              + THREADS)                              # a location window per warp
+    return wbytes + 4 * floats
 
 
-def _meta(fp: FoldedParams, b: int, n: int, steps: int, early_exit: bool):
+def scratch_floats(dims: Dims, n: int, b: int) -> int:
+    """Float32 words of the kernels' global scratch (``scratch_of``)."""
+    d = dims
+    return (SYNC_FLOATS + len(d.prenet) * b * max(d.prenet) + 2 * b * d.h + b * d.a
+            + b * n + b * d.d + d.n_gru * b * d.h + b * d.d + b * n + b * d.n_mel)
+
+
+def _meta(fp: FoldedParams, b: int, n: int, steps: int, early_exit: bool,
+          staged: bool):
     """Launch parameters in the order ``unpack`` in the CUDA source reads."""
     d, nt = fp.dims, THREADS
     pad = lambda xs: (lambda l: l + [0] * (MAX_PRENET - len(l)))(list(xs))  # noqa: E731
     ng = lambda xs: (lambda l: l + [0] * (MAX_GRU - len(l)))(list(xs))      # noqa: E731
-    wo, fo = fp.woff, fp.foff
+    fo, wsize = fp.foff, fp.wbuf.element_size()
+    sizes, numax = _grid(d, fp.blocks)
     meta = ([b, n, d.n_mel, d.d, d.h, d.a, d.r, d.r * d.n_mel, d.kwin,
-             len(d.prenet), d.n_gru, steps, int(early_exit), nt,
-             smem_bytes(d, n)]
-            + pad(d.prenet) + pad(wo[f'pre{i}'] for i in range(len(d.prenet)))
-            + [wo['wx']] + ng(wo[f'wi{j}'] for j in range(d.n_gru))
-            + ng(wo[f'wh{j}'] for j in range(d.n_gru))
-            + [wo['wq'], wo['wf'], wo['ws']]
+             len(d.prenet), d.n_gru, steps, int(early_exit), nt, fp.blocks, wsize,
+             smem_bytes(d, n, b, fp.blocks, wsize, staged), fp.wbuf.numel(),
+             scratch_floats(d, n, b), max(sizes), numax]
+            + pad(d.prenet)
             + pad(fo[f'bpre{i}'] for i in range(len(d.prenet))) + [fo['bx']]
             + ng(fo[f'bi{j}'] for j in range(d.n_gru))
             + ng(fo[f'bhn{j}'] for j in range(d.n_gru))
@@ -268,11 +400,13 @@ def _lib() -> ctypes.CDLL:
     """``csrc/fused_decoder.cu`` built at first use, with its C signatures
     (every pointer and the stream as ``void*``)."""
     lib = build.load('fused_decoder')
-    i32, ptr = ctypes.c_int, ctypes.c_void_p
+    i32, ptr_t = ctypes.c_int, ctypes.c_void_p
     meta = ctypes.POINTER(ctypes.c_longlong)
-    lib.decode_full.argtypes = [i32, meta, i32] + [ptr] * 10
-    lib.decode_step.argtypes = [i32, meta, i32] + [ptr] * 19
+    lib.decode_full.argtypes = [i32, meta, i32] + [ptr_t] * 13
+    lib.decode_step.argtypes = [i32, meta, i32] + [ptr_t] * 22
+    lib.grid_barriers.argtypes = [meta, i32, ptr_t, i32, ptr_t, ptr_t]
     lib.decode_full.restype = lib.decode_step.restype = i32
+    lib.grid_barriers.restype = i32
     lib.decoder_error_string.argtypes = [i32]
     lib.decoder_error_string.restype = ctypes.c_char_p
     return lib
@@ -284,19 +418,38 @@ def _raise(lib, rc: int, what: str):
         raise RuntimeError(f'{what} launch failed: {msg} ({rc})')
 
 
+def _scratch(fp: FoldedParams, b: int, n: int, device) -> torch.Tensor:
+    """Zeroed scratch: barrier words, then the vectors that cross blocks
+    (and decode_full's carry, which starts at zero)."""
+    return torch.zeros(scratch_floats(fp.dims, n, b), device=device)
+
+
+def _finish(scratch: torch.Tensor, what: str) -> None:
+    """Raise if a grid barrier of the launch failed (waits for it)."""
+    err = int(scratch[:SYNC_FLOATS].view(torch.int32)[1])
+    if err:
+        raise RuntimeError(f'{what}: {ERRORS.get(err, f"error word {err}")}')
+
+
 def _launch_full(lib, fp: FoldedParams, keys, values, mask, steps: int,
                  early_exit: bool):
     b, n = mask.shape
     d = fp.dims
-    meta, n_meta = _meta(fp, b, n, steps, early_exit)
+    retile(fp)
+    meta, n_meta = _meta(fp, b, n, steps, early_exit, staged=True)
     new = lambda *s: torch.empty(*s, device=keys.device)         # noqa: E731
     frames, stop = new(steps, b, d.r * d.n_mel), new(steps, b, d.r)
     align, fin = new(steps, b, n), new(steps, b, 1)
+    scratch, grid = _scratch(fp, b, n, keys.device), ctypes.c_int(0)
     rc = lib.decode_full(
         ctypes.c_int(fp.wbuf.dtype == torch.bfloat16), meta, ctypes.c_int(n_meta),
-        ptr(fp.wbuf), ptr(fp.fbuf), ptr(keys), ptr(values), ptr(mask),
-        ptr(frames), ptr(stop), ptr(align), ptr(fin), stream(keys))
+        ptr(fp.wbuf), ptr(fp.bases), ptr(fp.fbuf), ptr(keys), ptr(values), ptr(mask),
+        ptr(scratch),
+        ptr(frames), ptr(stop), ptr(align), ptr(fin), ctypes.byref(grid),
+        stream(keys))
     _raise(lib, rc, 'decode_full')
+    _finish(scratch, 'decode_full')
+    LAST_GRID['decode_full'] = grid.value
     return frames, stop, align, fin
 
 
@@ -304,20 +457,24 @@ def _launch_step(lib, fp: FoldedParams, prev, ctx, hs, cum, keys, values,
                  mask, finished):
     b, n = mask.shape
     d = fp.dims
-    meta, n_meta = _meta(fp, b, n, 1, False)
+    retile(fp)
+    meta, n_meta = _meta(fp, b, n, 1, False, staged=False)
     hs_in = torch.stack(hs).contiguous()
     new = torch.empty_like
     frames = torch.empty(b, d.r * d.n_mel, device=keys.device)
     stop = torch.empty(b, d.r, device=keys.device)
     align, ctx_o, cum_o, prev_o = new(cum), new(ctx), new(cum), new(prev)
     fin_o, hs_o = new(finished), new(hs_in)
+    scratch, grid = _scratch(fp, b, n, keys.device), ctypes.c_int(0)
     rc = lib.decode_step(
         ctypes.c_int(fp.wbuf.dtype == torch.bfloat16), meta, ctypes.c_int(n_meta),
-        ptr(fp.wbuf), ptr(fp.fbuf), ptr(prev), ptr(ctx), ptr(hs_in),
-        ptr(cum), ptr(keys), ptr(values), ptr(mask), ptr(finished),
+        ptr(fp.wbuf), ptr(fp.bases), ptr(fp.fbuf), ptr(prev), ptr(ctx), ptr(hs_in),
+        ptr(cum), ptr(keys), ptr(values), ptr(mask), ptr(finished), ptr(scratch),
         ptr(frames), ptr(stop), ptr(align), ptr(ctx_o), ptr(cum_o),
-        ptr(prev_o), ptr(fin_o), ptr(hs_o), stream(keys))
+        ptr(prev_o), ptr(fin_o), ptr(hs_o), ctypes.byref(grid), stream(keys))
     _raise(lib, rc, 'decode_step')
+    _finish(scratch, 'decode_step')
+    LAST_GRID['decode_step'] = grid.value
     return (frames, stop, align, ctx_o, cum_o, prev_o, fin_o), tuple(hs_o.unbind(0))
 
 
@@ -348,6 +505,24 @@ def decode_full(fp: FoldedParams, keys, values, mask, steps: int,
                            steps, early_exit)
     LAUNCHES['decode_full'] += 1
     return out
+
+
+def grid_barriers(fp: FoldedParams, b: int, n: int, rounds: int,
+                  device) -> int:
+    """``rounds`` grid barriers and nothing else, on the grid, threads and
+    shared memory that ``decode_full`` takes for ``b`` rows of ``n``
+    positions: the floor of its time per step is ``barriers_per_step``
+    rounds.  A diagnostic; returns the grid size."""
+    meta, n_meta = _meta(fp, b, n, 1, False, staged=True)
+    scratch, grid = _scratch(fp, b, n, device), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        lib = _lib()
+        rc = lib.grid_barriers(meta, ctypes.c_int(n_meta), ptr(scratch),
+                               ctypes.c_int(rounds), ctypes.byref(grid),
+                               stream(scratch))
+        _raise(lib, rc, 'grid_barriers')
+    _finish(scratch, 'grid_barriers')
+    return grid.value
 
 
 # ---------------------------------------------------------------------------
@@ -385,7 +560,8 @@ def fused_decode_full(fp: FoldedParams, keys, values, mask, steps: int,
     """The whole decode in one ``decode_full`` launch (same contract as
     ``fused_decode``).  With ``early_exit`` the emissions of a row after its
     stop step are zero; callers trim by ``out_lengths``.  Shapes whose
-    shared-memory working set exceeds the budget take ``fused_decode``."""
-    if smem_bytes(fp.dims, mask.shape[1]) > SMEM_BUDGET_BYTES:
+    per-block shared memory exceeds the budget take ``fused_decode``."""
+    b, n = mask.shape
+    if smem_bytes(fp.dims, n, b, fp.blocks, fp.wbuf.element_size()) > SMEM_BUDGET_BYTES:
         return fused_decode(fp, keys, values, mask, steps)
     return to_outputs(fp, *decode_full(fp, keys, values, mask, steps, early_exit))

@@ -16,8 +16,8 @@ cohort; ``vocode_batch``: one generator forward).
   the same N requests issued one by one.  At the shape of its own cohort a
   row differs in its last bits, which the bf16 decode and the bf16
   generator carry into differences of up to 0.16 in the wav (H100, seeded
-  weights, ``chip_smoke.py``).  The extra rows cost little: the decode
-  kernel runs each row on its own SM.
+  weights, ``chip_smoke.py``).  The extra rows cost the decode little: its
+  kernel reads each weight from shared memory once per four rows.
 * **Card work on long-lived threads.**  PyTorch builds some caches per
   thread (cuDNN's execution plans among them); a call on a fresh thread
   took 160-250 ms against 30-40 ms on a long-lived one on an H100.  So every
