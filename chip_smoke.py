@@ -18,12 +18,20 @@ exit:
    stop at different steps.  Then bf16 rows decoded at B=8 against the same
    rows decoded at B=1, bit for bit, by both kernels.  The LSA step at the
    JAX test's shape and the decoder's serving shapes, with short texts and
-   an all-masked row.
+   an all-masked row; then at the GPU tests' shapes (N from 1 to 256, kwin
+   5, 31, 63) with full rows, a row that ends inside the first CTA's tile
+   and an all-masked row, each B=8 row against the same row at B=1 and two
+   launches against each other, bit for bit.
 3. Timing with CUDA events after warm-up (decode at B=1, N=48, 300 steps;
    ``decode_full`` also at the cohort shapes B=8, N in {16, 64}; LSA step
    at B=8, N=64), beside the bound computed from the shapes; each decode
    kernel's device time alone (torch.profiler); and the barrier-only
-   floor: the same grid and barriers per step with no math.
+   floor: the same grid and barriers per step with no math.  The LSA
+   step's device time alone (torch.profiler), and, at B=8 with N in {64,
+   128, 256} and at B=1, N=64, its launch alone replayed from CUDA graphs
+   of 1 and of 100 launches beside its launch floor (``lsa_floor``: an
+   empty kernel of the same grid, cluster and shared memory), with its
+   cluster size C and tile P.
 4. The main path one request at a time: ``Synthesizer(device='cuda')`` at
    the default ``Config()`` with seeded weights.  Each request gets a stop
    head under which it stops after the steps its syllables take at the
@@ -108,6 +116,11 @@ BATCH_REPS = 5
 LSA_CASES = ((4, 128, 128, 256, 31), (1, 16, 128, 256, 31), (1, 64, 128, 256, 31),
              (8, 16, 128, 256, 31), (8, 64, 128, 256, 31), (8, 64, 128, 256, 5))
 LSA_TIMED = (8, 64, 128, 256, 31)
+# The GPU tests' LSA shapes (B, N, kwin) at A=128, D=256, with the text
+# lengths of ``cluster_lens``; and the (B, N) of the graph-replay timing.
+LSA_CLUSTER_CASES = ((1, 1, 31), (1, 17, 31), (8, 64, 31), (8, 64, 5), (4, 128, 63),
+                     (8, 256, 31))
+LSA_REPLAYED = ((8, 64), (1, 64), (8, 128), (8, 256))
 # decode_full timing: one request (B=1, N=48) and the cohort shapes
 DECODE_TIMED = ((1, 48), (8, 16), (8, 64))
 # tests/test_ops.py's bounds on (align, cum, ctx); float32 sums in another order
@@ -444,11 +457,13 @@ def time_kernels(fd, device):
 # phases 2-3: the LSA step kernel (no path of the system calls it)
 # ---------------------------------------------------------------------------
 
-def lsa_inputs(device, b: int, n: int, a: int, d: int, kwin: int, seed: int):
-    """``tests/test_ops.py``'s LSA inputs; text lengths fall from N in the
-    first row to 0 (every position masked) in the last, or N - 3 for B=1."""
+def lsa_inputs(device, b: int, n: int, a: int, d: int, kwin: int, seed: int, lens=None):
+    """``tests/test_ops.py``'s LSA inputs; text lengths ``lens``, by default
+    falling from N in the first row to 0 (every position masked) in the
+    last, or N - 3 for B=1."""
     r = np.random.RandomState(seed)
-    lens = np.rint(n * (1 - np.arange(b) / (b - 1))) if b > 1 else [n - 3]
+    if lens is None:
+        lens = np.rint(n * (1 - np.arange(b) / (b - 1))) if b > 1 else [n - 3]
     mask = (np.arange(n)[None] < np.asarray(lens)[:, None]).astype(np.float64)
     xs = (r.randn(b, a), np.abs(r.randn(b, n)), 0.1 * r.randn(b, n, a),
           r.randn(b, n, d), mask, 0.05 * r.randn(kwin, a), 0.1 * r.randn(a),
@@ -477,6 +492,54 @@ def compare_lsa(lk, device):
             failures.append((b, n, kwin))
     if failures:
         raise AssertionError(f'lsa_step disagrees with its plain version: {failures}')
+    return max(worst, compare_lsa_clusters(lk, device))
+
+
+def cluster_lens(lk, b: int, n: int):
+    """Text lengths of the cluster cases: full rows; for B > 1 the second
+    row ends inside the first CTA's tile (every other CTA of its cluster
+    sees only masked positions) and the third, for B > 2, is all masked."""
+    lens = [n] * b
+    if b > 1:
+        lens[1] = max(1, lk.lsa_plan(n)[1] // 2)
+    if b > 2:
+        lens[2] = 0
+    return lens
+
+
+def compare_lsa_clusters(lk, device):
+    """lsa_step against lsa_step_plain at ``LSA_CLUSTER_CASES``; the
+    all-masked row gives zeros; each row of a B > 1 launch is bit-identical
+    to the same row launched alone, and two launches to each other.
+    Returns the largest absolute difference."""
+    worst, failures = 0.0, []
+    for b, n, kwin in LSA_CLUSTER_CASES:
+        lens = cluster_lens(lk, b, n)
+        args = lsa_inputs(device, b, n, 128, 256, kwin, seed=n + kwin, lens=lens)
+        got = lk.lsa_step_fused(*args)
+        again = lk.lsa_step_fused(*args)
+        ref = lk.lsa_step_plain(*args)
+        rows = [lk.lsa_step_fused(*(x[i:i + 1].contiguous() if k < 5 else x
+                                    for k, x in enumerate(args))) for i in range(b)]
+        torch.cuda.synchronize()
+        errs = [float((g - r).abs().max()) for g, r in zip(got, ref)]
+        zero = all(not got[0][i].any() and not got[2][i].any()
+                   for i, ln in enumerate(lens) if ln == 0)
+        repeat = all(torch.equal(g, a) for g, a in zip(got, again))
+        alone = sum(all(torch.equal(o[0], g[i]) for o, g in zip(row, got))
+                    for i, row in enumerate(rows))
+        ok = (all(e <= tol for e, tol in zip(errs, LSA_TOL)) and zero and repeat
+              and alone == b)
+        worst = max([worst] + errs)
+        c, p = lk.lsa_plan(n)
+        log(f'  lsa_step B={b} N={n:3d} kwin={kwin:2d} (C={c}, P={p}) lengths {lens}: align '
+            f'{errs[0]:.2e}, cum {errs[1]:.2e}, ctx {errs[2]:.2e}; all-masked rows zero '
+            f'{zero}; two launches bit-identical {repeat}; rows bit-identical to the row '
+            f'launched alone {alone}/{b} {"ok" if ok else "FAIL"}')
+        if not ok:
+            failures.append((b, n, kwin))
+    if failures:
+        raise AssertionError(f'lsa_step cluster cases failed: {failures}')
     return worst
 
 
@@ -492,22 +555,37 @@ def lsa_bound(b: int, n: int, a: int, d: int, kwin: int):
 
 
 def time_lsa(lk, device):
-    """Per call through the wrapper, as a caller pays it; and the launch
+    """Per call through the wrapper, as a caller pays it; the kernel's
+    device time alone (torch.profiler); and at ``LSA_REPLAYED`` the launch
     alone, captured once in a CUDA graph and replayed, without the
-    wrapper's host work (checks, allocations, the ctypes call)."""
+    wrapper's host work (checks, allocations, the ctypes call), beside the
+    launch floor of the same grid (``lsa_floor``), replayed the same way;
+    ``floor_ms`` is the floor back to back on the device (``CHAIN`` launches
+    per graph)."""
+    from transtacos_retunegan_tpu_torch.tools.lsa_ab import CHAIN, replay_ms
     b, n, a, d, kwin = LSA_TIMED
     args = lsa_inputs(device, b, n, a, d, kwin, seed=7)
     res = dict(ms=cuda_ms(lambda: lk.lsa_step_fused(*args), 200, warm=5),
                plain_ms=cuda_ms(lambda: lk.lsa_step_plain(*args), 200, warm=5),
                bound=lsa_bound(b, n, a, d, kwin))
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        lk.lsa_step_fused(*args)
-    replay_ms = cuda_ms(graph.replay, 200, warm=5)
+    alone = device_ms(lambda: lk.lsa_step_fused(*args), 200, 'lsa_step_kernel')
     log(f'  lsa_step: kernel {res["ms"]:.4f} ms, plain {res["plain_ms"]:.4f} ms, bound '
         f'{res["bound"][0]:.6f} ms ({res["bound"][1]}) per call, B={b} N={n} A={a} '
-        f'D={d} kwin={kwin}; the launch alone, replayed from a CUDA graph: '
-        f'{replay_ms:.4f} ms')
+        f'D={d} kwin={kwin}; device time of the kernel alone (torch.profiler): '
+        + ('not measured' if alone is None else f'{alone:.5f} ms'))
+    for bb, nn in LSA_REPLAYED:
+        args = lsa_inputs(device, bb, nn, a, d, kwin, seed=7)
+        c, p = lk.lsa_plan(nn)
+        kernel, floor = ([replay_ms(fn), replay_ms(fn, reps=20, per_graph=CHAIN)]
+                         for fn in (lambda: lk.lsa_step_fused(*args),
+                                    lambda: lk.lsa_floor(bb, nn, a, d, kwin, device)))
+        log(f'  lsa_step B={bb} N={nn:3d} (C={c}, P={p}, grid {c}x{bb}), ms per launch '
+            f'replayed from a CUDA graph of 1 / {CHAIN} launches: kernel {kernel[0]:.5f} / '
+            f'{kernel[1]:.5f}, launch floor {floor[0]:.5f} / {floor[1]:.5f} '
+            f'({kernel[1] / floor[1]:.2f}x back to back); bound '
+            f'{lsa_bound(bb, nn, a, d, kwin)[0]:.6f} ms')
+        if (bb, nn) == (b, n):
+            res['floor_ms'] = floor[1]
     return res
 
 
@@ -1068,7 +1146,8 @@ def main() -> int:
          'replaces': replaces[k], 'launches': launches[k],
          'max_abs_err': worst[k], 'ms': times[k]['ms'],
          'plain_ms': times[k]['plain_ms'], 'bound_ms': times[k]['bound'][0],
-         'bound_by': times[k]['bound'][1], 'library_ms': None}
+         'bound_by': times[k]['bound'][1], 'library_ms': None,
+         **({'floor_ms': times[k]['floor_ms']} if 'floor_ms' in times[k] else {})}
         for k in ('decode_step', 'decode_full', 'lsa_step')]}
     log(f'total {time.perf_counter() - t_start:.1f} s')
     log(card)

@@ -10,9 +10,11 @@ Tolerances: float32 weights 1e-4 absolute (six steps of float32 sums taken
 in another order than PyTorch's); bf16 weights 1e-2, since both sides round
 the same operands to bf16 but a different sum order can flip one rounding.
 The LSA step: 1e-5 on the alignment and cum, 1e-4 on the context
-(``tests/test_ops.py``'s bounds; float32 sums in another order).
+(``tests/test_ops.py``'s bounds; float32 sums in another order); a row's
+bits do not depend on B or on the launch (no atomics, fixed sum orders).
 """
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -222,6 +224,64 @@ def test_lsa_step_kernel_matches_plain(cuda, shape):
         assert float((g - r).abs().max()) <= tol
     if lens[-1] == 0:
         assert float(got[0][-1].abs().max()) == 0.0 and float(got[2][-1].abs().max()) == 0.0
+
+
+LSA_CLUSTER = [(1, 1, 31), (1, 17, 31), (8, 64, 31), (8, 64, 5), (4, 128, 63), (8, 256, 31)]
+
+
+def _cluster_lens(b, n):
+    """Full rows; for B > 1 the second row ends inside the first CTA's tile
+    and the third, for B > 2, is all masked."""
+    lens = [n] * b
+    if b > 1:
+        lens[1] = max(1, lk.lsa_plan(n)[1] // 2)
+    if b > 2:
+        lens[2] = 0
+    return lens
+
+
+@pytest.mark.parametrize('b,n,kwin', LSA_CLUSTER, ids=lambda x: str(x))
+def test_lsa_cluster_kernel_matches_plain(cuda, b, n, kwin):
+    """One cluster of C CTAs per row against the plain version: full rows,
+    a row whose other CTAs see only masked positions, an all-masked row
+    (zeros); two launches give the same bits."""
+    lens = _cluster_lens(b, n)
+    args = _lsa_inputs(cuda, b, n, 128, 256, kwin, lens, seed=n + kwin)
+    before = lk.LAUNCHES['lsa_step']
+    got = lk.lsa_step_fused(*args)
+    assert lk.LAUNCHES['lsa_step'] == before + 1
+    again = lk.lsa_step_fused(*args)
+    assert lk.LAUNCHES['lsa_step'] == before + 2
+    ref = lk.lsa_step_plain(*args)
+    for g, r, tol in zip(got, ref, (1e-5, 1e-5, 1e-4)):
+        assert float((g - r).abs().max()) <= tol
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    for i, ln in enumerate(lens):
+        if ln == 0:
+            assert not got[0][i].any() and not got[2][i].any()
+        else:
+            assert not got[0][i, ln:].any()
+
+
+@pytest.mark.parametrize('n', [64, 256])
+def test_lsa_rows_at_b8_bit_identical_to_b1(cuda, n):
+    args = _lsa_inputs(cuda, 8, n, 128, 256, 31, _cluster_lens(8, n), seed=n)
+    got = lk.lsa_step_fused(*args)
+    for i in range(8):
+        alone = lk.lsa_step_fused(*(x[i:i + 1].contiguous() if k < 5 else x
+                                    for k, x in enumerate(args)))
+        assert all(torch.equal(a[0], g[i]) for a, g in zip(alone, got)), i
+
+
+def test_lsa_plan_mirrors_the_kernel_and_the_floor_launches(cuda):
+    lib, c, p = lk._lib(), ctypes.c_int(), ctypes.c_int()
+    for n in range(1, 513):
+        lib.lsa_plan(n, ctypes.byref(c), ctypes.byref(p))
+        assert (c.value, p.value) == lk.lsa_plan(n), n
+    before = lk.LAUNCHES['lsa_step']
+    lk.lsa_floor(8, 64, 128, 256, 31, cuda)
+    torch.cuda.synchronize()
+    assert lk.LAUNCHES['lsa_step'] == before
 
 
 def test_lsa_wrapper_rejects_bad_operands(cuda):

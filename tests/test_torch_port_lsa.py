@@ -1,6 +1,9 @@
 """The port's fused LSA step (``ops/lsa_kernel.py``; on the CPU its plain
 version) against the JAX op: the Pallas kernel in interpret mode and
-``lsa_step_reference``, on the same numpy inputs.
+``lsa_step_reference``, on the same numpy inputs; and the CUDA kernel's
+split of a row over a cluster of CTAs (``lsa_plan``) with its merge of the
+tiles' softmax and context, written out in torch and held to the same
+references.
 
 Tolerances are ``tests/test_ops.py``'s: 1e-5 absolute on the alignment and
 the cumulative alignment, 1e-4 on the context (float32 throughout; the two
@@ -152,6 +155,91 @@ def test_model_lsa_module_matches_the_op():
         np.testing.assert_allclose(got.numpy(), np.asarray(cum_m), atol=2e-5)
     np.testing.assert_allclose(ctx_f.numpy(), np.einsum('bn,bnd->bd', align_p.numpy(), values),
                                rtol=1e-4, atol=1e-5)
+
+
+def test_lsa_plan_covers_every_text_length():
+    """``lsa_plan``: at most 8 CTAs (the portable cluster size) of at least
+    8 positions, which cover N, the last one non-empty."""
+    for n in range(1, 513):
+        c, p = PK.lsa_plan(n)
+        assert 1 <= c <= 8 and p >= 8 and c * p >= n and (c - 1) * p < n, n
+    assert [PK.lsa_plan(n) for n in (1, 8, 9, 16, 64, 65, 128, 256)] == [
+        (1, 8), (1, 8), (2, 8), (2, 8), (8, 8), (8, 9), (8, 16), (8, 32)]
+
+
+def _cluster_merge(q, cum, keys, values, mask, loc_mat, v, b):
+    """The CUDA kernel's algebra in torch: the energies as the plain
+    version computes them, then per CTA tile r of ``lsa_plan`` its max m_r,
+    weights w = exp(e - m_r) * valid, their sum s_r and the unnormalised
+    partial context; merged in rank order into M = max m_r and
+    S = sum s_r exp(m_r - M).  Returns (align, cum', ctx) and, per tile,
+    its share ``s_r exp(m_r - M)`` and its scaled partial context."""
+    n, kwin = cum.shape[1], loc_mat.shape[0]
+    c, p = PK.lsa_plan(n)
+    windows = torch.nn.functional.pad(cum, (kwin // 2, kwin // 2)).unfold(1, kwin, 1)
+    e = torch.tanh(keys + q[:, None, :] + windows @ loc_mat + b) @ v
+    valid = mask > 0
+    e = torch.where(valid, e, torch.full_like(e, -1e30))
+    tiles = [slice(r * p, min((r + 1) * p, n)) for r in range(c)]
+    m = [e[:, t].amax(-1) for t in tiles]
+    w = [torch.exp(e[:, t] - m_r[:, None]) * valid[:, t] for t, m_r in zip(tiles, m)]
+    part = [torch.einsum('bn,bnd->bd', w_r, values[:, t]) for t, w_r in zip(tiles, w)]
+    big = m[0]
+    for m_r in m[1:]:
+        big = torch.maximum(big, m_r)
+    ex = [torch.exp(m_r - big) for m_r in m]
+    den = torch.zeros_like(big)
+    for w_r, ex_r in zip(w, ex):
+        den = den + w_r.sum(-1) * ex_r
+    den = den + 1e-30
+    align = torch.cat([w_r * (ex_r / den)[:, None] for w_r, ex_r in zip(w, ex)], 1)
+    ctx = torch.zeros_like(part[0])
+    shares = []
+    for part_r, w_r, ex_r in zip(part, w, ex):
+        ctx = ctx + part_r * (ex_r / den)[:, None]
+        shares.append((w_r.sum(-1) * ex_r, part_r * (ex_r / den)[:, None]))
+    return (align, cum + align, ctx), shares
+
+
+@pytest.mark.parametrize('b,n,kwin,jax_too', [(1, 1, 31, False), (1, 17, 31, True),
+                                              (8, 64, 31, True), (8, 64, 5, False),
+                                              (4, 128, 63, True), (8, 256, 31, False)],
+                         ids=lambda x: str(x))
+def test_cluster_merge_matches_plain_and_pallas(b, n, kwin, jax_too):
+    """The tiles merged in rank order give the plain version's and the
+    Pallas kernel's (interpret mode) results, for full rows, a row that ends
+    inside the first tile (its other tiles all masked) and an all-masked
+    row; masked tiles and rows contribute exact zeros."""
+    c, p = PK.lsa_plan(n)
+    lens = [n] * b
+    if b > 1:
+        lens[1] = max(1, p // 2)
+    if b > 2:
+        lens[2] = 0
+    args = _inputs(b, n, 64, 96, kwin, seed=n + kwin, lens=lens)
+    with torch.no_grad():
+        got, shares = _cluster_merge(*map(torch.from_numpy, args))
+        plain = PK.lsa_step_plain(*map(torch.from_numpy, args))
+    got = [x.numpy() for x in got]
+    _close(got, [x.numpy() for x in plain])
+    if jax_too:
+        _close(got, K.lsa_step_fused(*map(jnp.asarray, args), interpret=True))
+    align, _, ctx = got
+    for i, ln in enumerate(lens):
+        assert (align[i, ln:] == 0).all()
+        for r, (share, part) in enumerate(shares):
+            if r * p >= ln:              # a tile with no valid position
+                assert share[i] == 0 and (part[i] == 0).all(), (i, r)
+        if ln == 0:
+            assert (ctx[i] == 0).all()
+        else:
+            assert abs(align[i].sum() - 1) < 1e-5
+
+
+def test_lsa_floor_needs_a_cuda_device():
+    """The launch floor is a device measurement: on the CPU it raises."""
+    with pytest.raises(ValueError, match='CUDA device'):
+        PK.lsa_floor(8, 64, 128, 256, 31, 'cpu')
 
 
 def test_wrapper_rejects_bad_operands_before_launching():

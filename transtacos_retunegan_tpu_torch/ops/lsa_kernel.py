@@ -16,6 +16,11 @@ masking is the Pallas kernel's: masked energies are -1e30, the weights are
 multiplied by the mask and the divisor gets +1e-30, so a row with no valid
 position gives zeros (``lsa_step_reference``'s -inf would give NaN).
 
+The kernel runs one thread-block cluster of C CTAs per row, each over P
+text positions (``lsa_plan``); ``lsa_floor`` launches an empty kernel of the
+same grid, cluster and shared memory, the launch floor the kernel is
+measured against.
+
 As in the JAX package, no serving or training path calls this op: the
 decode kernels (``ops/fused_decoder.py``) do the same step inside their own
 loop, and their plain versions call ``lsa_step_plain``.
@@ -36,6 +41,16 @@ from .build import device_kind, ptr, stream
 LAUNCHES: Dict[str, int] = {'lsa_step': 0}
 KWIN = 31          # location conv width of the reference
 MAX_KWIN = 63      # largest window the kernel takes (odd widths only)
+MAX_CLUSTER = 8    # CTAs per row at most: the portable cluster size
+MIN_TILE = 8       # text positions per CTA at least
+
+
+def lsa_plan(n: int) -> Tuple[int, int]:
+    """The kernel's split of N text positions (``csrc/lsa_step.cu::plan``):
+    C CTAs per row, each over a tile of P positions, with
+    P = max(8, ceil(N/8)) and C = ceil(N/P) <= 8.  Returns (C, P)."""
+    p = max(MIN_TILE, -(-n // MAX_CLUSTER))
+    return -(-n // p), p
 
 
 def fold_location_params(conv_weight: torch.Tensor,
@@ -88,6 +103,10 @@ def _lib() -> ctypes.CDLL:
     lib = build.load('lsa_step')
     lib.lsa_step.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 12
     lib.lsa_step.restype = ctypes.c_int
+    lib.lsa_floor.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.lsa_floor.restype = ctypes.c_int
+    lib.lsa_plan.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    lib.lsa_plan.restype = None
     lib.lsa_error_string.argtypes = [ctypes.c_int]
     lib.lsa_error_string.restype = ctypes.c_char_p
     return lib
@@ -101,10 +120,14 @@ def _launch(lib, q, cum, keys, values, mask, loc_mat, v, b):
                       ptr(q), ptr(cum), ptr(keys), ptr(values), ptr(mask),
                       ptr(loc_mat), ptr(v), ptr(b), ptr(align), ptr(cum_out),
                       ptr(ctx), stream(keys))
-    if rc != 0:
-        raise RuntimeError(f'lsa_step launch failed: '
-                           f'{lib.lsa_error_string(rc).decode()} ({rc})')
+    _raise(lib, 'lsa_step', rc)
     return align, cum_out, ctx
+
+
+def _raise(lib, name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f'{name} launch failed: '
+                           f'{lib.lsa_error_string(rc).decode()} ({rc})')
 
 
 def lsa_step_fused(q, cum, keys, values, mask, loc_mat, v, b
@@ -120,3 +143,17 @@ def lsa_step_fused(q, cum, keys, values, mask, loc_mat, v, b
         out = _launch(_lib(), *args)
     LAUNCHES['lsa_step'] += 1
     return out
+
+
+def lsa_floor(b: int, n: int, a: int, d: int, kwin: int, device) -> None:
+    """One launch of an empty kernel with ``lsa_step_kernel``'s grid, cluster
+    shape and shared memory for these sizes, on the current stream of
+    ``device`` (a CUDA device); not counted in ``LAUNCHES``."""
+    device = torch.device(device)
+    if device.type != 'cuda':
+        raise ValueError(f'lsa_floor needs a CUDA device, got {device}')
+    with torch.cuda.device(device):
+        lib = _lib()
+        rc = lib.lsa_floor(b, n, a, d, kwin,
+                           ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+        _raise(lib, 'lsa_floor', rc)
