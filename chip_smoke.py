@@ -52,6 +52,19 @@ exit:
 6. The per-stage time of one request, the latency of each request, the
    cost of a fresh thread, and the wav of a small configuration on the card
    against the same ``Synthesizer`` on the CPU.
+7. Vocoder training at the default ``Config()`` (``RefineGAN_small`` at 256
+   channels, B=16, 8192-sample segments, full discriminators, float32 with
+   TF32 off) on a seeded tone corpus (``tools/tone_corpus.py``):
+   ``train_vocoder`` for 3 epochs with a checkpoint at step 10, then a
+   restart that resumes from it (every metric finite, every family's
+   parameters moved); the loader's host time per batch; the first step at
+   B=2 on the card against the CPU; each of the 12 generators on the card
+   against the CPU and under bf16 autocast; the GAN step's time (median and
+   quartiles by CUDA events), its split into generator forward,
+   discriminator phase and generator phase, throughput and peak memory, in
+   float32 and bf16, and loss_mstft falling on one fixed batch (its
+   weight raised, so that it leads the generator's gradient).  This path
+   launches none of the three kernels.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
@@ -125,6 +138,26 @@ LSA_REPLAYED = ((8, 64), (1, 64), (8, 128), (8, 256))
 DECODE_TIMED = ((1, 48), (8, 16), (8, 64))
 # tests/test_ops.py's bounds on (align, cum, ctx); float32 sums in another order
 LSA_TOL = (1e-5, 1e-5, 1e-4)
+# Vocoder training (phase 7): a tone corpus of 1-4 s utterances, 4 steps
+# per epoch at the default B=16; GAN steps timed after a warm-up on one
+# fixed batch.  From the seeded start, Adam's first updates (each weight
+# moves by about lr, a large step for the small weight-norm directions)
+# make loss_mstft on a fixed batch swing for several steps, and at the
+# default loss weights the adversarial terms move it too (on an H100 the
+# mean of steps 10-14 against steps 0-4 ranged from 0.79 to 0.99).  So the
+# check that the step learns runs MSTFT_STEPS steps from the seeded start
+# with the mstft weight MSTFT_BOOST times the default, where that loss
+# leads the generator's gradient: the mean of the last 5 must be below
+# MSTFT_FALL times the loss before the first update (0.61-0.68 in four
+# runs on an H100).  Card against CPU, float32 with TF32
+# off: the first step's losses and scores (STEP_TOL relative), the
+# parameters as in the CPU tests, generator outputs in (-1, 1) (GEN_TOL).
+# The gradients are printed, not held: cuDNN's float32 algorithms and the
+# CPU's sum in other orders, and some leaves' gradients cancel to a small
+# fraction of their terms (the noise weight's: 13% apart on an H100).
+TRAIN_UTTS, TEST_UTTS = 68, 4
+GAN_WARM, GAN_TIMED, MSTFT_STEPS, MSTFT_BOOST, MSTFT_FALL = 3, 12, 15, 50.0, 0.9
+STEP_TOL, GEN_TOL = 1e-3, 1e-4
 
 
 def log(*args):
@@ -1084,6 +1117,335 @@ def slice_against_cpu(device):
         raise AssertionError('the slice on the card disagrees with the CPU')
 
 
+# ---------------------------------------------------------------------------
+# phase 7: vocoder training on the card
+# ---------------------------------------------------------------------------
+
+def drawn_noise(cfg, gen, batch, seed: int):
+    """One generator forward's training noise, drawn on the CPU: the shape
+    of each noise call from an inference forward (a pre-hook on the noise
+    modules), one uniform tensor per call."""
+    from transtacos_retunegan_tpu_torch.models.vocoder_layers import LearnedGaussianNoise
+    from transtacos_retunegan_tpu_torch.train.vocoder_step import apply_generator
+    shapes = []
+    hooks = [m.register_forward_pre_hook(lambda mod, args: shapes.append(args[0].shape))
+             for m in gen.modules() if isinstance(m, LearnedGaussianNoise)]
+    with torch.no_grad():
+        apply_generator(cfg, gen, batch)
+    for h in hooks:
+        h.remove()
+    g = torch.Generator().manual_seed(seed)
+    return [torch.rand(s, generator=g) for s in shapes]
+
+
+def leaf_errors(params, ref_params, grads, ref_grads, lr: float):
+    """Over the leaves (dicts of name -> tensor): the gradient difference
+    over the gradient, each as one vector; the leaf whose largest
+    difference is largest against its own norm, as (name, that ratio); and
+    the largest parameter difference over lr where the update's sign is
+    resolved, the rule of ``tests/test_torch_port_gan_step.py`` (Adam's
+    first update is lr x g / (|g| + 1e-8))."""
+    sq_diff = sq_ref = worst_p = 0.0
+    worst_leaf = ('', 0.0)
+    for name, p in params.items():
+        g, rg = grads[name].cpu(), ref_grads[name]
+        sq_diff += float(((g - rg).double() ** 2).sum())
+        sq_ref += float((rg.double() ** 2).sum())
+        diff = float((g - rg).abs().max())
+        ratio = diff / max(float(rg.norm()), 1e-30)
+        if ratio > worst_leaf[1]:
+            worst_leaf = (name, ratio)
+        live = rg.abs() >= 1e-6 + diff
+        err = (p.cpu() - ref_params[name]).abs()[live]
+        if err.numel():
+            worst_p = max(worst_p, float(err.max()) / lr)
+    return math.sqrt(sq_diff / max(sq_ref, 1e-300)), worst_leaf, worst_p
+
+
+def params_and_grads(module):
+    return ({n: p.detach().clone() for n, p in module.named_parameters()},
+            {n: p.grad.clone() for n, p in module.named_parameters()})
+
+
+def step_card_vs_cpu(cfg, device, items):
+    """The first GAN step at full width, B=2, on the card and on the CPU
+    from the same seeded weights, batch and noise, compared as
+    ``tests/test_torch_port_gan_step.py`` compares the port with the JAX
+    package: one discriminator update from the common start, then the
+    generator update against the CPU's updated discriminators (Adam's
+    first update is lr x the gradient's sign, so a second update, or the
+    generator against discriminators updated apart, would carry the sign
+    of every gradient element within rounding of 0).  The losses within
+    STEP_TOL relative, the mean scores within STEP_TOL, the parameters as
+    in the CPU tests; the gradients printed."""
+    from transtacos_retunegan_tpu_torch.train import vocoder_step as vs
+    hv = cfg.vocoder
+    cfg1 = dataclasses.replace(cfg, vocoder=dataclasses.replace(hv, d_train_times=1))
+    cpu_b = {k: torch.from_numpy(v) for k, v in items.items()}
+    gpu_b = {k: v.to(device) for k, v in cpu_b.items()}
+    noise = drawn_noise(cfg1, vs.init_gan_state(cfg1, SEED, 'cpu').generator, cpu_b, SEED)
+    disc, gen, metrics = {}, {}, {}
+    cpu_d = None
+    for where, b, nz in (('cpu', cpu_b, noise), ('gpu', gpu_b, [n.to(device) for n in noise])):
+        st = vs.init_gan_state(cfg1, SEED, b['wav'].device)
+        y_g = vs.apply_generator(cfg1, st.generator, b, nz)
+        d_aux = vs.discriminator_phase(cfg1, st, b['wav'], y_g.detach(), 4)
+        disc[where] = params_and_grads(st.discriminators)
+        if where == 'cpu':
+            cpu_d = st.discriminators.state_dict()
+        else:
+            st.discriminators.load_state_dict(cpu_d)
+        g_aux = vs.generator_phase(cfg1, st, b['wav'], y_g, 4)
+        gen[where] = params_and_grads(st.generator)
+        metrics[where] = {k: float(v.detach()) for k, v in {**d_aux, **g_aux}.items()}
+    # losses relative; the mean scores (sc_*) are means of outputs of order 1
+    # that cancel, so against 1
+    rel = {k: abs(metrics['gpu'][k] - v) / max(abs(v), 1.0 if k.startswith('sc_') else 1e-2)
+           for k, v in metrics['cpu'].items()}
+    worst_m = max(rel, key=rel.get)
+    gd, wd, pd = leaf_errors(disc['gpu'][0], disc['cpu'][0], disc['gpu'][1], disc['cpu'][1],
+                             hv.learning_rate_d)
+    gg, wg, pg = leaf_errors(gen['gpu'][0], gen['cpu'][0], gen['gpu'][1], gen['cpu'][1],
+                             hv.learning_rate_g)
+    log(f'  first step, B=2, card vs CPU: losses and scores worst {worst_m} '
+        f'{rel[worst_m]:.2e} (tol {STEP_TOL:.0e}); resolved parameter diff / lr: D {pd:.2e}, '
+        f'G {pg:.2e} (tol 1e-2); gradient difference over the gradient: D {gd:.2e}, '
+        f'G {gg:.2e}; largest against its leaf\'s norm: D {wd[0]} {wd[1]:.2e}, '
+        f'G {wg[0]} {wg[1]:.2e}')
+    if not (rel[worst_m] <= STEP_TOL and max(pd, pg) <= 1e-2):
+        raise AssertionError('the GAN step on the card disagrees with the CPU')
+
+
+def generators_card_vs_cpu(device):
+    """Every generator of the registry at the default widths, seeded
+    weights, B=1, 32 frames: the inference forward on the card against the
+    CPU in float32, and a bf16-autocast forward that must be finite."""
+    import copy
+    from transtacos_retunegan_tpu_torch.config import Config
+    from transtacos_retunegan_tpu_torch.models.generators import GENERATORS, make_generator
+    from transtacos_retunegan_tpu_torch.train.vocoder_step import apply_generator
+    from transtacos_retunegan_tpu_torch.weights import seeded_init
+    base = Config()
+    r = np.random.RandomState(SEED)
+    frames, hop = 32, base.audio.hop_length
+    mel = r.randn(1, frames, base.audio.n_mel).astype(np.float32)
+    tmpl = (0.1 * r.randn(1, frames * hop)).astype(np.float32)
+    uv = (np.repeat(r.rand(1, frames), hop, 1) > 0.5).astype(np.float32)
+    arrays = {'mel': mel, 'tmpl': tmpl, 'wav': tmpl, 'mel_c': mel, 'mel_v': mel[:, ::-1].copy(),
+              'tmpl_c': tmpl * uv, 'tmpl_v': tmpl * (1 - uv), 'uv': uv}
+    worst = {}
+    for ver in sorted(GENERATORS):
+        cfg = dataclasses.replace(base, vocoder=dataclasses.replace(
+            base.vocoder, generator_ver=ver, compute_dtype='float32'))
+        gen = seeded_init(make_generator(cfg), SEED)
+        on_card = copy.deepcopy(gen).to(device)
+        cpu_b = {k: torch.from_numpy(v) for k, v in arrays.items()}
+        gpu_b = {k: v.to(device) for k, v in cpu_b.items()}
+        with torch.no_grad():
+            a = apply_generator(cfg, gen, cpu_b)
+            b = apply_generator(cfg, on_card, gpu_b)
+            bf = apply_generator(dataclasses.replace(cfg, vocoder=dataclasses.replace(
+                cfg.vocoder, compute_dtype='bfloat16')), on_card, gpu_b)
+        worst[ver] = float((b.cpu() - a).abs().max())
+        if a.shape != (1, frames * hop) or not worst[ver] <= GEN_TOL \
+                or not bool(torch.isfinite(bf).all()):
+            raise AssertionError(f'{ver} on the card: diff {worst[ver]:.2e}, '
+                                 f'bf16 finite {bool(torch.isfinite(bf).all())}')
+    log('  12 generators, card vs CPU, B=1, 32 frames, float32 (tol '
+        f'{GEN_TOL:.0e}); bf16 autocast finite: '
+        + ', '.join(f'{k} {v:.1e}' for k, v in worst.items()))
+
+
+def gan_step_times(cfg, device, batch, steps: int, warm: int):
+    """``steps`` GAN steps at B=16 on one fixed batch after ``warm``, each
+    timed by CUDA events; returns (ms per step, loss_mstft per step,
+    max_memory_allocated in bytes)."""
+    from transtacos_retunegan_tpu_torch.train import vocoder_step as vs
+    state = vs.init_gan_state(cfg, SEED, device)
+    noise = torch.Generator(device=device).manual_seed(SEED)
+    for _ in range(warm):
+        vs.gan_train_step(cfg, state, batch, noise, 4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    mstft = []
+    marks[0].record()
+    for i in range(steps):
+        _, m = vs.gan_train_step(cfg, state, batch, noise, 4)
+        marks[i + 1].record()
+        mstft.append(m['loss_mstft'])
+    torch.cuda.synchronize()
+    ms = [marks[i].elapsed_time(marks[i + 1]) for i in range(steps)]
+    return ms, [float(x) for x in torch.stack(mstft).cpu()], torch.cuda.max_memory_allocated()
+
+
+def gan_phase_times(cfg, device, batch, steps: int = 10, warm: int = 2):
+    """Median ms of the generator forward, the discriminator phase and the
+    generator phase, CUDA events between them, over ``steps`` steps."""
+    from transtacos_retunegan_tpu_torch.train import vocoder_step as vs
+    state = vs.init_gan_state(cfg, SEED, device)
+    noise = torch.Generator(device=device).manual_seed(SEED)
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(4)] for _ in range(steps)]
+    for i in range(warm + steps):
+        e = ev[i - warm] if i >= warm else None
+        e and e[0].record()
+        y_g = vs.apply_generator(cfg, state.generator, batch, noise)
+        e and e[1].record()
+        vs.discriminator_phase(cfg, state, batch['wav'], y_g.detach(), 4)
+        e and e[2].record()
+        vs.generator_phase(cfg, state, batch['wav'], y_g, 4)
+        e and e[3].record()
+        state.step += 1
+    torch.cuda.synchronize()
+    return {name: float(np.median([x[j].elapsed_time(x[j + 1]) for x in ev]))
+            for j, name in enumerate(('G forward', 'D phase', 'G phase'))}
+
+
+def quartiles(ms):
+    q1, med, q3 = np.percentile(ms, [25, 50, 75])
+    return f'median {med:.3f} ms, quartiles {q1:.3f} / {q3:.3f}'
+
+
+def training_run(corpus: str, run_dir: str):
+    """``train_vocoder`` on the card at the default Config: 3 epochs with
+    a checkpoint at step 10, then a restart for 5 epochs that resumes from
+    it.  Every step's metrics are recorded, with the parameters before the
+    first step and after the last."""
+    from transtacos_retunegan_tpu_torch.train import checkpoint as ckpt
+    from transtacos_retunegan_tpu_torch.train import train_vocoder as tv
+    real, calls, snaps = tv.gan_train_step, [], {}
+
+    def params(state):
+        return {f'{k}.{n}': p.detach().clone() for k, m in
+                (('generator', state.generator), ('disc', state.discriminators))
+                for n, p in m.named_parameters()}
+
+    def recording(cfg, state, batch, noise, spe):
+        if 'first' not in snaps:
+            snaps['first'] = params(state)
+        calls.append(state.step)
+        state, m = real(cfg, state, batch, noise, spe)
+        snaps['metrics'] = snaps.get('metrics', []) + [m]
+        snaps['last'] = state
+        return state, m
+
+    argv = ['--data_dir', corpus, '--log_path', run_dir, '--stdout_interval', '4',
+            '--summary_interval', '1000', '--checkpoint_interval', '10',
+            '--validation_interval', '12']
+    tv.gan_train_step = recording
+    try:
+        t0 = time.perf_counter()
+        tv.main(argv + ['--epochs', '3'])
+        t_a = time.perf_counter() - t0
+        steps_a = len(calls)
+        saved = torch.load(ckpt.scan_checkpoint(run_dir, 'do_'), map_location='cpu')
+        t0 = time.perf_counter()
+        tv.main(argv + ['--epochs', '5'])
+        t_b = time.perf_counter() - t0
+    finally:
+        tv.gan_train_step = real
+    resumed_at = calls[steps_a]
+    metrics = snaps['metrics']
+    finite = all(bool(torch.isfinite(torch.stack(list(m.values()))).all()) for m in metrics)
+    last = params(snaps['last'])
+    moved = {part: any(not torch.equal(snaps['first'][k], last[k])
+                       for k in last if k.startswith(part))
+             for part in ('generator', 'disc.msd', 'disc.mpd', 'disc.mtd')}
+    with open(f'{run_dir}/rtg.log') as fh:
+        resumed_log = f"resumed from step {saved['step']} epoch {saved['epoch']}" in fh.read()
+    log(f"  run A: {steps_a} steps in {t_a:.1f} s (epochs 0-2, dataset built), newest "
+        f"checkpoint step {saved['step']} epoch {saved['epoch']}; run B resumed at step "
+        f"{resumed_at} ({resumed_log and 'logged'}), {len(calls) - steps_a} steps in "
+        f'{t_b:.1f} s; {len(metrics)} steps, every metric finite: {finite}; '
+        f'parameters moved: {moved}')
+    last_m = {k: round(float(v), 4) for k, v in metrics[-1].items()}
+    log(f'  last step: {last_m}')
+    if not (steps_a == 12 and (saved['step'], saved['epoch']) == (10, 2) and resumed_at == 10
+            and resumed_log and len(calls) - steps_a == 12 and finite and all(moved.values())):
+        raise AssertionError('the training run did not train, checkpoint or resume')
+
+
+def loader_times(dataset, batch_size: int, workers: int):
+    """Host ms per batch of the training loader: its first epoch (which
+    builds the cached items it draws: augmentation, Griffin-Lim), then,
+    with every item cached, an epoch of crops.  Returns (first, cached)."""
+    from transtacos_retunegan_tpu_torch.data.vocoder_data import VocoderLoader
+    loader = VocoderLoader(dataset, batch_size, num_workers=workers)
+    t0 = time.perf_counter()
+    n = len(list(loader))
+    first = 1e3 * (time.perf_counter() - t0) / n
+    for i in range(len(dataset)):
+        dataset[i]
+    t0 = time.perf_counter()
+    list(loader)
+    cached = 1e3 * (time.perf_counter() - t0) / n
+    log(f'  loader ({workers} workers), ms per batch of {batch_size}: first epoch (builds '
+        f'the cache: augmentation, Griffin-Lim) {first:.1f}, an epoch of cached items '
+        f'(crops) {cached:.2f}')
+    return first, cached
+
+
+def vocoder_training(device):
+    """Phase 7."""
+    import tempfile
+    from transtacos_retunegan_tpu_torch.config import Config
+    from transtacos_retunegan_tpu_torch.data.vocoder_data import VocoderDataset
+    from transtacos_retunegan_tpu_torch.tools.tone_corpus import write_corpus
+    cfg = Config()
+    hv, au = cfg.vocoder, cfg.audio
+    log(f'  default Config: {hv.generator_ver} at {hv.upsample_initial_channel} channels, '
+        f'B={hv.batch_size}, segment {au.segment_size}, discriminator width '
+        f'{hv.disc_width_mult}, {len(hv.multi_stft_params)} STFT resolutions, '
+        f'd_train_times={hv.d_train_times}, {hv.compute_dtype} (TF32 off)')
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        lengths = write_corpus(f'{tmp}/corpus', au, TRAIN_UTTS, TEST_UTTS, seed=SEED)
+        log(f'  tone corpus: {TRAIN_UTTS} + {TEST_UTTS} utterances, '
+            f'{sum(lengths) / au.sample_rate:.1f} s of audio, written in '
+            f'{time.perf_counter() - t0:.1f} s')
+        training_run(f'{tmp}/corpus', f'{tmp}/run')
+
+        per_batch = loader_times(VocoderDataset('train', f'{tmp}/corpus', cfg),
+                                 hv.batch_size, hv.num_workers)
+        # the fixed batch, its items built in order (the loader's threads
+        # draw the augmentation's random numbers in the order they run)
+        ds = VocoderDataset('train', f'{tmp}/corpus', cfg)
+        rows = [ds[i] for i in range(hv.batch_size)]
+        items = {k: np.stack([r[k] for r in rows]) for k in rows[0]}
+    batch = {k: torch.from_numpy(v).to(device) for k, v in items.items()}
+
+    ms, mstft, mem = gan_step_times(cfg, device, batch, GAN_TIMED, GAN_WARM)
+    med = float(np.median(ms))
+    samples = hv.batch_size * au.segment_size / (med / 1e3)
+    log(f'  GAN step, float32, B={hv.batch_size}: {quartiles(ms)} ({GAN_TIMED} after '
+        f'{GAN_WARM} warm-up); {samples:.0f} samples/s, {samples / au.sample_rate:.2f} s of '
+        f'audio per s; max_memory_allocated {mem / 2 ** 30:.2f} GiB; loss_mstft on this '
+        'fixed batch: ' + ' '.join(f'{x:.3f}' for x in mstft))
+    boosted = dataclasses.replace(cfg, vocoder=dataclasses.replace(
+        hv, w_loss_mstft=MSTFT_BOOST * hv.w_loss_mstft))
+    _, mstft, _ = gan_step_times(boosted, device, batch, MSTFT_STEPS, 0)
+    first, late = mstft[0], float(np.mean(mstft[-5:]))
+    log(f'  loss_mstft on one fixed batch over {MSTFT_STEPS} GAN steps from the seeded '
+        f'start, its weight x{MSTFT_BOOST:g}: ' + ' '.join(f'{x:.3f}' for x in mstft)
+        + f'; before the first update {first:.4f}, mean of the last 5 {late:.4f} '
+        f'(must be below {MSTFT_FALL:.2f} x)')
+    phases = gan_phase_times(cfg, device, batch)
+    log('  one step split (median of 10, ms): '
+        + ', '.join(f'{k} {v:.3f}' for k, v in phases.items())
+        + f' (sum {sum(phases.values()):.3f})')
+    bf16 = dataclasses.replace(cfg, vocoder=dataclasses.replace(hv, compute_dtype='bfloat16'))
+    ms_bf, _, mem_bf = gan_step_times(bf16, device, batch, GAN_TIMED, GAN_WARM)
+    log(f'  GAN step, bf16 autocast, B={hv.batch_size}: {quartiles(ms_bf)}; '
+        f'{hv.batch_size * au.segment_size / (float(np.median(ms_bf)) / 1e3) / au.sample_rate:.2f}'
+        f' s of audio per s; max_memory_allocated {mem_bf / 2 ** 30:.2f} GiB')
+    log(f'  host loader: {per_batch[1]:.2f} ms per batch after the first epoch against a '
+        f'{med:.1f} ms step')
+    step_card_vs_cpu(cfg, device, {k: v[:2] for k, v in items.items()})
+    generators_card_vs_cpu(device)
+    if not late < MSTFT_FALL * first:
+        raise AssertionError('loss_mstft did not fall on a fixed batch')
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -1134,6 +1496,11 @@ def main() -> int:
     request_latency(synth, plan)
     thread_cost(synth, plan, REQUESTS[1])
     slice_against_cpu(device)
+
+    log('== phase 7: vocoder training on the card (train_vocoder, default Config)')
+    t0 = time.perf_counter()
+    vocoder_training(device)
+    log(f'  phase 7 took {time.perf_counter() - t0:.1f} s; it launches none of the kernels')
 
     sources = {'decode_step': 'fused_decoder.cu', 'decode_full': 'fused_decoder.cu',
                'lsa_step': 'lsa_step.cu'}

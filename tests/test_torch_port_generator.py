@@ -65,8 +65,13 @@ def test_wn_conv_strided_grouped_matches():
 
 
 def test_other_generators_not_ported():
+    """Every variant of the JAX registry is ported now (parity per variant
+    in ``test_torch_port_vocoder.py``); a name outside it raises."""
     import dataclasses
+    from transtacos_retunegan_tpu.models.generators import GENERATORS as JAX_GENERATORS
+    from transtacos_retunegan_tpu_torch.models.generators import GENERATORS
+    assert sorted(GENERATORS) == sorted(JAX_GENERATORS)
     cfg = dataclasses.replace(PCFG, vocoder=dataclasses.replace(
-        PCFG.vocoder, generator_ver='HiFiGAN'))
-    with pytest.raises(NotImplementedError):
+        PCFG.vocoder, generator_ver='NoSuchGAN'))
+    with pytest.raises(ValueError, match='unknown generator'):
         make_generator(cfg)

@@ -312,3 +312,133 @@ def test_spec_batch_on_the_card_matches_the_cpu(cuda):
     for g, r in zip(*specs):
         assert g.shape == r.shape
         np.testing.assert_allclose(g, r, rtol=1e-3, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# vocoder training on the card (no kernel of the repo: cuDNN convolutions)
+# ---------------------------------------------------------------------------
+
+def _vocoder_cfg(**vocoder):
+    """The CPU tests' small vocoder: 2048-sample segments, B=2, 32 initial
+    generator channels, slim discriminators, one STFT resolution."""
+    base = Config()
+    return dataclasses.replace(
+        base, audio=dataclasses.replace(base.audio, segment_size=2048),
+        vocoder=dataclasses.replace(
+            base.vocoder, **{**dict(upsample_initial_channel=32, batch_size=2, num_workers=1,
+                                    disc_width_mult=0.25, msd_layers=1, mpd_periods=(3,),
+                                    multi_stft_params=((512, 256, 60),)), **vocoder}))
+
+
+def _vocoder_batch(cfg, seed=0, b=2):
+    r = np.random.RandomState(seed)
+    seg, hop = cfg.audio.segment_size, cfg.audio.hop_length
+    mel = r.randn(b, seg // hop, cfg.audio.n_mel).astype(np.float32)
+    tmpl = (0.1 * r.randn(b, seg)).astype(np.float32)
+    uv = (np.repeat(r.rand(b, seg // hop), hop, 1) > 0.5).astype(np.float32)
+    return {'mel': mel, 'tmpl': tmpl, 'wav': (0.1 * r.randn(b, seg)).astype(np.float32),
+            'mel_c': mel, 'mel_v': mel[:, ::-1].copy(), 'tmpl_c': tmpl * uv,
+            'tmpl_v': tmpl * (1 - uv), 'uv': uv}
+
+
+@pytest.mark.parametrize('ver', ['HiFiGAN', 'HiFiGANRetune', 'HiFiGANSplit', 'HiFiGAN_micro',
+                                 'HiFiGAN_mini', 'HiFiGAN_mu', 'MelGAN', 'MelGANRetune',
+                                 'MelGANSplit', 'RefineGAN', 'RefineGAN_small', 'RetuneCNN'])
+def test_generator_on_the_card_matches_the_cpu(cuda, ver):
+    """Each generator's inference and training forwards (the same noise)
+    on the card against the CPU, float32: 1e-4 on outputs in (-1, 1)."""
+    from transtacos_retunegan_tpu_torch.models.generators import make_generator
+    from transtacos_retunegan_tpu_torch.train.vocoder_step import apply_generator
+    cfg = _vocoder_cfg(generator_ver=ver)
+    gen = seeded_init(make_generator(cfg), 7)
+    batch = {k: torch.from_numpy(v) for k, v in _vocoder_batch(cfg).items()}
+    noise = [torch.rand(s, generator=torch.Generator().manual_seed(i))
+             for i, s in enumerate(_noise_shapes(cfg, gen, batch))]
+    with torch.no_grad():
+        ref = [apply_generator(cfg, gen, batch), apply_generator(cfg, gen, batch, list(noise))]
+        gen.to(cuda)
+        gpu_b = {k: v.to(cuda) for k, v in batch.items()}
+        got = [apply_generator(cfg, gen, gpu_b),
+               apply_generator(cfg, gen, gpu_b, [n.to(cuda) for n in noise])]
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape == (2, 2048)
+        assert float((g.cpu() - r).abs().max()) <= 1e-4
+
+
+def _noise_shapes(cfg, gen, batch):
+    from transtacos_retunegan_tpu_torch.models.vocoder_layers import LearnedGaussianNoise
+    from transtacos_retunegan_tpu_torch.train.vocoder_step import apply_generator
+    shapes = []
+    hooks = [m.register_forward_pre_hook(lambda mod, args: shapes.append(args[0].shape))
+             for m in gen.modules() if isinstance(m, LearnedGaussianNoise)]
+    with torch.no_grad():
+        apply_generator(cfg, gen, batch)
+    for h in hooks:
+        h.remove()
+    return shapes
+
+
+def test_gan_step_on_the_card_matches_the_cpu(cuda):
+    """One GAN step from the same seeded weights, batch and noise, as
+    ``tests/test_torch_port_gan_step.py`` holds the port to the JAX
+    package: the whole step's metrics within 1e-3 relative; one
+    discriminator update from the common start and the generator update
+    against the CPU's updated discriminators, each leaf's gradient within
+    1e-2 of its norm (cuDNN's float32 algorithms against the CPU's, summed
+    over every position with cancellation: 2.4e-3 measured on the
+    generator's template conv) and the updated parameters within 1e-2 x lr
+    where the gradient exceeds 1e-6 plus the leaf's largest difference."""
+    from transtacos_retunegan_tpu_torch.train import vocoder_step as vs
+    cfg = _vocoder_cfg()
+    cpu_b = {k: torch.from_numpy(v) for k, v in _vocoder_batch(cfg, 1).items()
+             if k in ('mel', 'tmpl', 'wav')}
+    gpu_b = {k: v.to(cuda) for k, v in cpu_b.items()}
+    cpu, gpu = vs.init_gan_state(cfg, 3, 'cpu'), vs.init_gan_state(cfg, 3, cuda)
+    noise = [torch.rand(s, generator=torch.Generator().manual_seed(i))
+             for i, s in enumerate(_noise_shapes(cfg, cpu.generator, cpu_b))]
+    _, m_cpu = vs.gan_train_step(cfg, cpu, cpu_b, list(noise), 4)
+    _, m_gpu = vs.gan_train_step(cfg, gpu, gpu_b, [n.to(cuda) for n in noise], 4)
+    for k in m_cpu:
+        assert abs(float(m_gpu[k]) - float(m_cpu[k])) <= 1e-3 * abs(float(m_cpu[k])) + 1e-6, k
+
+    cfg1 = dataclasses.replace(cfg, vocoder=dataclasses.replace(cfg.vocoder, d_train_times=1))
+    out, cpu_d = {}, None
+    for where, b, nz in (('cpu', cpu_b, noise), ('gpu', gpu_b, [n.to(cuda) for n in noise])):
+        st = vs.init_gan_state(cfg1, 3, b['wav'].device)
+        y_g = vs.apply_generator(cfg1, st.generator, b, nz)
+        vs.discriminator_phase(cfg1, st, b['wav'], y_g.detach(), 4)
+        d = {n: (p.detach().cpu().clone(), p.grad.cpu().clone())
+             for n, p in st.discriminators.named_parameters()}
+        if where == 'cpu':
+            cpu_d = st.discriminators.state_dict()
+        else:
+            st.discriminators.load_state_dict(cpu_d)
+        vs.generator_phase(cfg1, st, b['wav'], y_g, 4)
+        g = {n: (p.detach().cpu(), p.grad.cpu()) for n, p in st.generator.named_parameters()}
+        out[where] = {'disc': d, 'gen': g}
+    hv = cfg.vocoder
+    for part, lr in (('disc', hv.learning_rate_d), ('gen', hv.learning_rate_g)):
+        for name, (p_ref, g_ref) in out['cpu'][part].items():
+            p, g = out['gpu'][part][name]
+            diff = float((g - g_ref).abs().max())
+            assert diff <= 1e-2 * float(g_ref.norm()) + 1e-30, (part, name, diff)
+            live = g_ref.abs() >= 1e-6 + diff
+            err = (p - p_ref).abs()[live]
+            assert err.numel() == 0 or float(err.max()) <= 1e-2 * lr, (part, name)
+
+
+def test_train_vocoder_on_the_card(cuda, tmp_path):
+    """``train_vocoder`` (default ``--device cuda``) for 2 steps on a tone
+    corpus at the small configuration: a checkpoint at step 2."""
+    from transtacos_retunegan_tpu_torch.tools.tone_corpus import write_corpus
+    from transtacos_retunegan_tpu_torch.train import train_vocoder
+    cfg = _vocoder_cfg()
+    write_corpus(str(tmp_path / 'corpus'), cfg.audio, 4, 1, seed=0, min_s=0.3, max_s=1.0)
+    train_vocoder.main(['--data_dir', str(tmp_path / 'corpus'), '--log_path',
+                        str(tmp_path / 'run'), '--config', cfg.save(str(tmp_path / 'cfg')),
+                        '--epochs', '1', '--stdout_interval', '1', '--checkpoint_interval', '2',
+                        '--validation_interval', '2'])
+    saved = torch.load(tmp_path / 'run' / 'do_00000002', map_location='cpu')
+    assert saved['step'] == 2
+    assert all(v.is_cuda for v in torch.load(tmp_path / 'run' / 'g_00000002')
+               ['generator'].values())

@@ -7,6 +7,8 @@ import functools
 
 import jax
 import numpy as np
+import pytest
+import torch
 
 from transtacos_retunegan_tpu.config import Config as JaxConfig
 from transtacos_retunegan_tpu_torch.config import Config as PortConfig
@@ -129,3 +131,142 @@ def distinct_stop_bias(stop_probs: np.ndarray, r: int, bias0: float,
             best = (gap, c, first)
     assert best is not None, 'no stop bias separates the rows'
     return -float(best[1]), best[2] + 1
+
+
+# ---------------------------------------------------------------------------
+# vocoder training (test_torch_port_vocoder*.py, test_torch_port_gan_step*.py)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope='module')
+def few_threads():
+    """Two intra-op threads for PyTorch while a module's tests run (then
+    the number before): the vocoder's CPU steps are many small ops, and
+    with one thread per core in each of several test processes the
+    threads' synchronisation took 17x the single-process time."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(min(before, 2))
+    yield
+    torch.set_num_threads(before)
+
+
+# tests/test_vocoder.py's small configuration: 2048-sample segments (8
+# frames), B=2, 32 initial generator channels, two STFT resolutions
+VOCODER_SMALL = dict(upsample_initial_channel=32,
+                     multi_stft_params=((1024, 512, 120), (512, 256, 60)))
+SEG, FRAMES, VB = 2048, 8, 2
+
+
+def vocoder_cfg_pair(**vocoder):
+    """The same vocoder configuration in both packages' Config classes."""
+    out = []
+    for config_cls in (JaxConfig, PortConfig):
+        base = config_cls()
+        out.append(dataclasses.replace(base, vocoder=dataclasses.replace(
+            base.vocoder, **{**VOCODER_SMALL, **vocoder})))
+    return tuple(out)
+
+
+def vocoder_batch(cfg, seed: int, b: int = VB, seg: int = SEG):
+    """A numpy batch of the configured generator's inputs and a target."""
+    rng = np.random.RandomState(seed)
+    frames = seg // cfg.audio.hop_length
+    mel = rng.randn(b, frames, cfg.audio.n_mel).astype(np.float32)
+    tmpl = (0.1 * rng.randn(b, seg)).astype(np.float32)
+    wav = (0.1 * rng.randn(b, seg)).astype(np.float32)
+    if not cfg.vocoder.split_cv:
+        return {'mel': mel, 'tmpl': tmpl, 'wav': wav}
+    uv = (rng.rand(b, seg) > 0.5).astype(np.float32)
+    return {'mel_c': mel, 'mel_v': (mel[:, ::-1] * 0.5).copy(), 'tmpl_c': tmpl * uv,
+            'tmpl_v': tmpl * (1 - uv), 'uv': uv, 'wav': wav}
+
+
+def generator_args(cfg, batch):
+    """The generator's positional inputs in the JAX layout."""
+    if cfg.vocoder.split_cv:
+        return (batch['mel_c'], batch['mel_v'], batch['tmpl_c'][..., None],
+                batch['tmpl_v'][..., None], batch['uv'][..., None])
+    return batch['mel'], batch['tmpl'][..., None]
+
+
+def vocoder_trees(cfg, batch, seed: int):
+    """Random trees on the shapes of the JAX generator and of the
+    ``{'msd', 'mpd', 'mtd'}`` discriminator tree."""
+    import jax.numpy as jnp
+    from transtacos_retunegan_tpu.models import discriminators as jd
+    from transtacos_retunegan_tpu.models import vocoder_losses as jl
+    from transtacos_retunegan_tpu.models.generators import make_generator
+    args = tuple(jnp.asarray(a) for a in generator_args(cfg, batch))
+    keys = {'params': jax.random.PRNGKey(0), 'noise': jax.random.PRNGKey(1)}
+    gshape = jax.eval_shape(lambda: make_generator(cfg).init(keys, *args, train=True))
+    y = jnp.asarray(batch['wav'])
+    _, sr, sg = jax.eval_shape(lambda: jl.multi_stft_specs_and_loss(y, y, cfg))
+    spec = [jnp.zeros(s.shape) for s in sr]
+    k = jax.random.PRNGKey(0)
+    dshape = {
+        'msd': jax.eval_shape(lambda: jd.MultiScaleDiscriminator(cfg).init(
+            k, y[..., None], y[..., None])),
+        'mpd': jax.eval_shape(lambda: jd.MultiPeriodDiscriminator(cfg).init(
+            k, y[..., None], y[..., None])),
+        'mtd': jax.eval_shape(lambda: jd.MultiStftDiscriminator(cfg).init(k, spec, spec)),
+    }
+    return (random_tree(gshape['params'], seed),
+            {n: random_tree(s['params'], seed + 1 + i)
+             for i, (n, s) in enumerate(sorted(dshape.items()))})
+
+
+def noise_interceptor(record):
+    """A ``flax.linen.intercept_methods`` interceptor that draws the
+    training noise of ``LearnedGaussianNoise.__call__`` itself, from the
+    same ``make_rng('noise')`` call the module makes, appends it to
+    ``record`` and returns what the module would."""
+    from transtacos_retunegan_tpu.models import vocoder_layers as jvl
+
+    def icpt(next_fun, args, kwargs, context):
+        train = kwargs.get('train', args[1] if len(args) > 1 else True)
+        if (not isinstance(context.module, jvl.LearnedGaussianNoise)
+                or context.method_name != '__call__' or not train):
+            return next_fun(*args, **kwargs)
+        x = args[0]
+        w = context.module.param('w', lambda *_: None, (1,))
+        n = jax.random.uniform(context.module.make_rng('noise'), x.shape, x.dtype)
+        record.append(n)
+        return jvl.lrelu(x + n * w)
+    return icpt
+
+
+def jax_generator_with_noise(cfg):
+    """jitted ``(params, args, noise_key) -> (train-forward output, noise
+    list)`` of the JAX generator, the noise recorded by
+    ``noise_interceptor``."""
+    import flax.linen as fnn
+    from transtacos_retunegan_tpu.models.generators import make_generator
+
+    @jax.jit
+    def run(params, args, key):
+        record = []
+        with fnn.intercept_methods(noise_interceptor(record)):
+            out = make_generator(cfg).apply({'params': params}, *args, train=True,
+                                            rngs={'noise': key})
+        return out, record
+    return run
+
+
+def exact_zero_imag_stft_ri(stft_ri):
+    """The JAX package's ``stft_ri`` with the imaginary parts that are
+    exactly zero for any real input (the DC and Nyquist rows, the first
+    frame, which reflect padding makes even-symmetric, and the last one
+    when it is centred on the last sample) set to +0, as the port sets
+    them.  The DFT matmul computes rounding noise of either sign there,
+    which makes the phase of a bin with a negative real part +pi or -pi at
+    random; comparisons that feed the phase to the STFT discriminator patch
+    it in."""
+    import jax.numpy as jnp
+
+    def patched(y, n_fft, hop_length, win_length, window='hann', **kw):
+        re, im = stft_ri(y, n_fft, hop_length, win_length, window, **kw)
+        keep = np.ones(im.shape[-2:], bool)
+        keep[0, :] = keep[-1, :] = keep[:, 0] = False
+        if (y.shape[-1] - 1) % hop_length == 0:
+            keep[:, -1] = False
+        return re, jnp.where(keep, im, 0.0)
+    return patched

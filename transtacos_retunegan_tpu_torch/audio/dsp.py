@@ -43,9 +43,16 @@ def _ola_norm(n_frames: int, n_fft: int, hop_length: int, win_length: int,
     return np.where(acc > 1e-11, acc, 1.0).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=64)
+def _on_device(device: torch.device, fn, *args) -> torch.Tensor:
+    """``fn(*args)`` (a numpy constant) as a tensor on ``device``, built
+    once: a copy from pageable host memory per call would wait for the
+    card's queue."""
+    return torch.from_numpy(fn(*args)).to(device)
+
+
 def _window(kind: str, win_length: int, n_fft: int, like: torch.Tensor):
-    return torch.from_numpy(_padded_window(kind, win_length, n_fft)).to(
-        like.device)
+    return _on_device(like.device, _padded_window, kind, win_length, n_fft)
 
 
 @functools.lru_cache(maxsize=32)
@@ -61,7 +68,7 @@ def stft(y: torch.Tensor, n_fft: int, hop_length: int, win_length: int,
          window: str = 'hann') -> torch.Tensor:
     """Complex STFT ``[..., T] -> [..., n_fft//2+1, n_frames]``."""
     lead = y.shape[:-1]
-    idx = torch.from_numpy(_reflect_index(y.shape[-1], n_fft // 2)).to(y.device)
+    idx = _on_device(y.device, _reflect_index, y.shape[-1], n_fft // 2)
     s = torch.stft(y.reshape(-1, y.shape[-1])[:, idx], n_fft, hop_length,
                    window=_window(window, win_length, n_fft, y),
                    center=False, return_complex=True)
@@ -196,10 +203,14 @@ def fix_zero_dc(s: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
     return s
 
 
-def mel_basis(cfg: AudioConfig, device) -> torch.Tensor:
-    return torch.from_numpy(melmod.mel_basis(
-        cfg.sample_rate, cfg.n_fft, cfg.n_mel, cfg.fmin, cfg.fmax,
-        htk=cfg.mel_scale == 'htk')).to(device)
+def _mel_basis_np(cfg: AudioConfig, n_fft: int) -> np.ndarray:
+    return melmod.mel_basis(cfg.sample_rate, n_fft, cfg.n_mel, cfg.fmin,
+                            cfg.fmax, htk=cfg.mel_scale == 'htk')
+
+
+def mel_basis(cfg: AudioConfig, device, n_fft: Optional[int] = None) -> torch.Tensor:
+    """``[n_mel, n_fft // 2 + 1]`` mel filters (at ``cfg.n_fft`` unless given)."""
+    return _on_device(torch.device(device), _mel_basis_np, cfg, n_fft or cfg.n_fft)
 
 
 def mag_to_mel(mag_natural: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
@@ -234,3 +245,41 @@ def inv_spec_acoustic(mag_natural: torch.Tensor, cfg: AudioConfig,
                     cfg.hop_length, cfg.win_length, cfg.window_fn, momentum=0.0,
                     theta=theta, generator=generator)
     return inv_preemphasis(y, cfg.preemphasis)
+
+
+@functools.lru_cache(maxsize=32)
+def _imag_nonzero(n_freq: int, n_frames: int, last_symmetric: bool) -> np.ndarray:
+    keep = np.ones((n_freq, n_frames), bool)
+    keep[0, :] = keep[-1, :] = keep[:, 0] = False
+    if last_symmetric:
+        keep[:, -1] = False
+    return keep
+
+
+def _exact_zero_imag(im: torch.Tensor, num_samples: int, hop_length: int) -> torch.Tensor:
+    """The imaginary part with the entries that are exactly zero for any
+    real input set to +0: the DC and Nyquist rows, and every frame that
+    reflect padding makes even-symmetric about its centre (the first; the
+    last when it is centred on the last sample).  A DFT computes rounding
+    noise of either sign there, which turns the phase of a bin with a
+    negative real part into +pi or -pi at random."""
+    keep = _on_device(im.device, _imag_nonzero, im.shape[-2], im.shape[-1],
+                      (num_samples - 1) % hop_length == 0)
+    return torch.where(keep, im, torch.zeros((), dtype=im.dtype, device=im.device))
+
+
+def stft_mag_mel_phase(y: torch.Tensor, cfg: AudioConfig, n_fft: int,
+                       win_length: int, hop_length: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Differentiable (|S|, mel, phase) of ``y [..., T]``, each ``[..., F or
+    n_mel, n_frames]``, for the multi-STFT loss and the STFT discriminator:
+    ``|S| = sqrt((re + 1e-9)^2 + im^2)`` (never exactly zero), the mel basis
+    at this ``n_fft``, and ``atan2(im, re)`` on the raw ``re``.  Twice
+    differentiable (the R1 penalty takes a gradient of a gradient through
+    it)."""
+    re, im = stft_ri(y, n_fft, hop_length, win_length, cfg.window_fn)
+    im = _exact_zero_imag(im, y.shape[-1], hop_length)
+    re_eps = re + 1e-9
+    s = torch.sqrt(re_eps * re_eps + im * im)
+    m = torch.einsum('mf,...ft->...mt', mel_basis(cfg, s.device, n_fft), s)
+    return s, m, torch.atan2(im, re)

@@ -1,16 +1,22 @@
-"""Vocoder building blocks at inference, ported from
+"""Vocoder building blocks, ported from
 ``transtacos_retunegan_tpu/models/vocoder_layers.py``.
 
-Convs run in torch's ``[B, C, T]`` layout.  Weight normalisation is the JAX
-package's: ``w = g * v / sqrt(sum(v^2) + 1e-12)`` with the norm taken per
-OUTPUT channel, for plain and transposed convs alike (torch's
-``weight_norm`` on ConvTranspose1d would group per input channel).  Grouped
-convs use ``F.conv1d(groups=...)`` directly.
+Convs run in torch's ``[B, C, T]`` (``[B, C, H, W]`` in 2D) layout.  Weight
+normalisation is the JAX package's: ``w = g * v / sqrt(sum(v^2) + 1e-12)``
+with the norm taken per OUTPUT channel, for plain, transposed and 2D convs
+alike (torch's ``weight_norm`` on ConvTranspose1d would group per input
+channel).  Grouped convs use ``groups=`` directly (the JAX package's
+block-diagonal dense lowering is a TPU workaround with the same result).
+
+Training noise (``LearnedGaussianNoise``) comes from an explicit source: a
+``torch.Generator`` on the tensor's device, or an iterator of tensors the
+caller drew (``noise_source`` turns a list into one).  ``None`` is the
+inference forward.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Iterator, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -18,14 +24,23 @@ import torch.nn.functional as F
 
 LRELU_SLOPE = 0.15
 
+Noise = Union[None, torch.Generator, Iterator[torch.Tensor]]
+
 
 def lrelu(x: torch.Tensor, slope: float = LRELU_SLOPE) -> torch.Tensor:
     return F.leaky_relu(x, slope)
 
 
-def _wn(v: torch.Tensor, g: torch.Tensor, dims) -> torch.Tensor:
+def noise_source(noise) -> Noise:
+    """A list or tuple of noise tensors becomes an iterator consumed in the
+    order of the noise calls; a ``torch.Generator``, an iterator or None
+    passes through."""
+    return iter(noise) if isinstance(noise, (list, tuple)) else noise
+
+
+def _wn(v: torch.Tensor, g: torch.Tensor, out_dim: int) -> torch.Tensor:
+    dims = tuple(d for d in range(v.ndim) if d != out_dim)
     shape = [1] * v.ndim
-    out_dim = ({0, 1, 2} - set(dims)).pop()
     shape[out_dim] = -1
     norm = torch.sqrt((v * v).sum(dim=dims, keepdim=True) + 1e-12)
     return v * (g.reshape(shape) / norm)
@@ -45,15 +60,15 @@ class WNConv(nn.Module):
         self.b = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = _wn(self.v, self.g, (1, 2))
-        return F.conv1d(x, w, self.b, self.stride, self.padding,
-                        self.dilation, self.groups)
+        return F.conv1d(x, _wn(self.v, self.g, 0), self.b, self.stride,
+                        self.padding, self.dilation, self.groups)
 
 
 class WNConvTranspose(nn.Module):
     """Weight-normalised ConvTranspose1d; v ``[in, out, k]``; torch padding
     ``k // 2`` and output padding ``stride - 1`` unless given (an exact
-    ``stride x`` upsampler for odd k)."""
+    ``stride x`` upsampler for odd k; the even kernels of the MelGAN and
+    HiFiGANRetune blocks pass ``padding`` and ``output_padding=0``)."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int,
                  padding: int = -1, output_padding: int = -1):
@@ -66,20 +81,42 @@ class WNConvTranspose(nn.Module):
         self.b = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = _wn(self.v, self.g, (0, 2))
-        return F.conv_transpose1d(x, w, self.b, self.stride, self.padding,
-                                  self.output_padding)
+        return F.conv_transpose1d(x, _wn(self.v, self.g, 1), self.b, self.stride,
+                                  self.padding, self.output_padding)
+
+
+class WNConv2d(nn.Module):
+    """Weight-normalised Conv2d; v ``[out, in, kh, kw]``, the norm per
+    output channel over (in, kh, kw); symmetric padding per axis."""
+
+    def __init__(self, cin: int, cout: int, kernel: Tuple[int, int],
+                 stride: Tuple[int, int] = (1, 1), padding: Tuple[int, int] = (0, 0)):
+        super().__init__()
+        self.stride, self.padding = tuple(stride), tuple(padding)
+        self.v = nn.Parameter(torch.zeros(cout, cin, *kernel))
+        self.g = nn.Parameter(torch.ones(cout))
+        self.b = nn.Parameter(torch.zeros(cout))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x, _wn(self.v, self.g, 0), self.b, self.stride, self.padding)
 
 
 class LearnedGaussianNoise(nn.Module):
-    """Learned-scale uniform noise + leaky_relu; at inference only the
-    leaky_relu remains (``w`` is kept for the param tree)."""
+    """``x + U[0,1) * w`` then leaky_relu (uniform noise despite the name,
+    as in the reference).  ``noise`` None is the inference forward: only
+    the leaky_relu."""
 
     def __init__(self):
         super().__init__()
         self.w = nn.Parameter(torch.full((1,), 1e-6))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, noise: Noise = None) -> torch.Tensor:
+        if noise is not None:
+            if isinstance(noise, torch.Generator):
+                n = torch.rand(x.shape, generator=noise, device=x.device)
+            else:
+                n = next(noise)
+            x = x + n.to(x.dtype) * self.w
         return lrelu(x)
 
 
@@ -103,11 +140,34 @@ class ResidualStack(nn.Module):
         return x
 
 
-class ResBlock3(nn.Module):
-    """3-conv dilated resblock: x += conv_d(lrelu(x)) per dilation."""
+class ResidualBlock(nn.Module):
+    """MelGAN up/down block: lrelu -> resize conv -> ResidualStack.  'u'
+    is a transposed conv with padding ``stride // 2`` and no output
+    padding (exactly ``stride x`` for the (16, 8) and (4, 2) pairs); 'd' a
+    strided conv with the same padding."""
 
-    def __init__(self, channels: int, kernel: int = 3,
-                 dilation: Sequence[int] = (1, 3, 5)):
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int,
+                 resize: str = 'u'):
+        super().__init__()
+        self.resize = resize
+        if resize == 'u':
+            self.WNConvTranspose_0 = WNConvTranspose(cin, cout, kernel, stride,
+                                                     padding=stride // 2,
+                                                     output_padding=0)
+        else:
+            self.WNConv_0 = WNConv(cin, cout, kernel, stride=stride,
+                                   padding=stride // 2)
+        self.ResidualStack_0 = ResidualStack(cout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        conv = self.WNConvTranspose_0 if self.resize == 'u' else self.WNConv_0
+        return self.ResidualStack_0(conv(lrelu(x)))
+
+
+class _DilatedBlock(nn.Module):
+    """x += conv_d(lrelu(x)) per dilation (ResBlock2 / ResBlock3)."""
+
+    def __init__(self, channels: int, kernel: int, dilation: Sequence[int]):
         super().__init__()
         for i, d in enumerate(dilation):
             self.add_module(f'WNConv_{i}',
@@ -117,3 +177,38 @@ class ResBlock3(nn.Module):
         for conv in self.children():
             x = conv(lrelu(x)) + x
         return x
+
+
+class ResBlock2(_DilatedBlock):
+    """HiFiGAN 2-conv dilated resblock."""
+
+    def __init__(self, channels: int, kernel: int = 3,
+                 dilation: Sequence[int] = (1, 3)):
+        super().__init__(channels, kernel, dilation)
+
+
+class ResBlock3(_DilatedBlock):
+    """3-conv dilated resblock."""
+
+    def __init__(self, channels: int, kernel: int = 3,
+                 dilation: Sequence[int] = (1, 3, 5)):
+        super().__init__(channels, kernel, dilation)
+
+
+class ResBlockFull(nn.Module):
+    """HiFiGAN-v1 style resblock: per dilation, x += conv_1(lrelu(conv_d(lrelu(x))))."""
+
+    def __init__(self, channels: int, kernel: int = 3,
+                 dilation: Sequence[int] = (1, 3, 5)):
+        super().__init__()
+        for i, d in enumerate(dilation):
+            self.add_module(f'WNConv_{2 * i}',
+                            WNConv(channels, channels, kernel, dilation=d))
+            self.add_module(f'WNConv_{2 * i + 1}', WNConv(channels, channels, kernel))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        convs = list(self.children())
+        for c1, c2 in zip(convs[0::2], convs[1::2]):
+            x = c2(lrelu(c1(lrelu(x)))) + x
+        return x
+

@@ -1,0 +1,94 @@
+"""Vocoder checkpoints, the GAN part of
+``transtacos_retunegan_tpu/train/checkpoint.py`` with torch files in place
+of orbax trees.
+
+Two files per save, with the JAX package's names and keep counts:
+``g_<step:08d>`` (the generator's state dict, what inference loads) and
+``do_<step:08d>`` (the discriminators, both optimizers' states, step and
+epoch).  ``scan_checkpoint`` finds the newest by sorted prefix match.
+Each file is written under a temporary name and renamed into place.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import shutil
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+
+def scan_checkpoint(dirpath: str, prefix: str) -> Optional[str]:
+    """Newest checkpoint matching ``prefix<digits>`` (sorted order)."""
+    if not os.path.isdir(dirpath):
+        return None
+    pat = re.compile(re.escape(prefix) + r'(\d+)$')
+    hits = sorted(p for p in os.listdir(dirpath) if pat.match(p))
+    return os.path.join(dirpath, hits[-1]) if hits else None
+
+
+def prune_old(dirpath: str, prefix: str, keep: int = 1) -> None:
+    pat = re.compile(re.escape(prefix) + r'(\d+)$')
+    hits = sorted(p for p in os.listdir(dirpath) if pat.match(p))
+    for p in hits[:-keep] if keep > 0 else hits:
+        full = os.path.join(dirpath, p)
+        if os.path.isdir(full):
+            shutil.rmtree(full, ignore_errors=True)
+        else:
+            os.remove(full)
+
+
+def _save(path: str, obj) -> None:
+    tmp = f'{path}.{os.getpid()}.tmp'
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+
+
+def save_gan(run_dir: str, state, epoch: int, keep: int = 2) -> Tuple[str, str]:
+    """Write ``g_``/``do_`` of ``state`` (a ``vocoder_step.GANState``) at
+    its step; keep the newest ``keep`` of each."""
+    os.makedirs(run_dir, exist_ok=True)
+    g_path = os.path.join(run_dir, f'g_{state.step:08d}')
+    do_path = os.path.join(run_dir, f'do_{state.step:08d}')
+    _save(g_path, {'generator': state.generator.state_dict()})
+    _save(do_path, {'discriminators': state.discriminators.state_dict(),
+                    'gen_opt': state.gen_opt.state_dict(),
+                    'disc_opt': state.disc_opt.state_dict(),
+                    'step': state.step, 'epoch': epoch})
+    prune_old(run_dir, 'g_', keep)
+    prune_old(run_dir, 'do_', keep)
+    return g_path, do_path
+
+
+def _device(module: nn.Module) -> torch.device:
+    return next(module.parameters()).device
+
+
+def restore_gan(run_dir: str, state) -> Tuple[Optional[object], int]:
+    """Load the newest ``g_``/``do_`` into ``state`` in place; returns
+    ``(state, epoch)``, or ``(None, -1)`` when there is no checkpoint."""
+    g_path = scan_checkpoint(run_dir, 'g_')
+    do_path = scan_checkpoint(run_dir, 'do_')
+    if g_path is None or do_path is None:
+        return None, -1
+    dev = _device(state.generator)
+    g = torch.load(g_path, map_location=dev)
+    do = torch.load(do_path, map_location=dev)
+    state.generator.load_state_dict(g['generator'])
+    state.discriminators.load_state_dict(do['discriminators'])
+    state.gen_opt.load_state_dict(do['gen_opt'])
+    state.disc_opt.load_state_dict(do['disc_opt'])
+    state.step = int(do['step'])
+    return state, int(do['epoch'])
+
+
+def restore_generator_params(run_dir: str, generator: nn.Module) -> Optional[nn.Module]:
+    """Inference: the newest ``g_`` into ``generator``, or None."""
+    g_path = scan_checkpoint(run_dir, 'g_')
+    if g_path is None:
+        return None
+    generator.load_state_dict(torch.load(g_path, map_location=_device(generator))
+                              ['generator'])
+    return generator

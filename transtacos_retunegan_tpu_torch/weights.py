@@ -8,8 +8,13 @@ converted per leaf kind:
 * Conv ``kernel [k, in/g, out]``         -> ``weight [out, in/g, k]``
 * WNConv ``v [k, in/g, out]``            -> ``v [out, in/g, k]``
 * WNConvTranspose ``v [k, in, out]``     -> ``v [in, out, k]``
+* WNConv2d ``v [kh, kw, in, out]``       -> ``v [out, in, kh, kw]``
 * everything else (biases, ``g``/``b``, embeddings, ``attention_variable``,
-  the shared ``noise/w``) is copied as is.
+  the shared ``noise/w``, the generators' ``alpha``) is copied as is.
+
+A tree of several models maps onto a module with one child per top-level
+key, e.g. ``models.discriminators.Discriminators`` for the
+``{'msd', 'mpd', 'mtd'}`` discriminator tree.
 
 ``from_flax`` raises unless every leaf lands on a parameter of the module
 and every parameter receives a leaf of its shape.  Trees travel between
@@ -45,6 +50,8 @@ def _convert(module: nn.Module, path: Tuple[str, ...],
     if name == 'kernel':
         name = 'weight'
         leaf = leaf.T if leaf.ndim == 2 else leaf.transpose(2, 1, 0)
+    elif name == 'v' and leaf.ndim == 4:
+        leaf = leaf.transpose(3, 2, 0, 1)
     elif name == 'v' and leaf.ndim == 3:
         try:
             owner = module.get_submodule('.'.join(path[:-1]))
@@ -103,7 +110,8 @@ def seeded_init(module: nn.Module, seed: int) -> nn.Module:
     device) with the JAX package's initialiser families: lecun-normal
     denses and convs, orthogonal GRU hidden kernels, zero biases,
     truncated-normal(0.5) embeddings, kaiming-normal (leaky slope 0.15)
-    weight-norm directions with the matching gain ``g``."""
+    weight-norm directions (fan-in: every axis but the output channel) with
+    the matching gain ``g``, and the generators' ``alpha`` at 4."""
     gen = torch.Generator().manual_seed(seed)
     slope_gain = 2.0 / (1.0 + 0.15 ** 2)
     for name, p in module.named_parameters():
@@ -116,6 +124,8 @@ def seeded_init(module: nn.Module, seed: int) -> nn.Module:
             val = torch.full(shape, slope_gain ** 0.5)
         elif leaf == 'w':
             val = torch.full(shape, 1e-6)
+        elif leaf == 'alpha':
+            val = torch.full(shape, 4.0)
         elif leaf.startswith('E_'):
             val = (torch.randn(shape, generator=gen) * 0.5).clamp(-1.0, 1.0)
         elif leaf == 'attention_variable':
@@ -123,7 +133,7 @@ def seeded_init(module: nn.Module, seed: int) -> nn.Module:
             val = (torch.rand(shape, generator=gen) * 2 - 1) * lim
         elif leaf == 'v':
             transposed = parent.startswith('WNConvTranspose')
-            fan_in = shape[0] * shape[2] if transposed else shape[1] * shape[2]
+            fan_in = shape[0] * shape[2] if transposed else shape[1:].numel()
             val = torch.randn(shape, generator=gen) * (slope_gain / fan_in) ** 0.5
         elif leaf == 'weight' and parent in ('hr', 'hz', 'hn'):
             q, _ = torch.linalg.qr(torch.randn(shape, generator=gen))
