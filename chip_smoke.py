@@ -65,6 +65,21 @@ exit:
    float32 and bf16, and loss_mstft falling on one fixed batch (its
    weight raised, so that it leads the generator's gradient).  This path
    launches none of the three kernels.
+8. Acoustic training at the default ``Config()`` (H=512, A=128, D=256,
+   r=5, two GRUs, prenet 256, the 'sa' encoder with fusenet, B=16, float32
+   with TF32 off): first the whole-decode kernel on a seeded stock cell
+   against the same cell in the fused ``fast_cell`` layout; then a seeded
+   synthetic Mandarin corpus (``tools/synth_corpus.py``) at DataBaker's
+   mean utterance length, its frame distribution and the loader's host
+   time; ``train_acoustic`` to step 24 with a checkpoint at step 20, then a
+   restart that resumes from it to step 30 (step counter and optimizer
+   state restored, every loss finite; training launches no kernel); the
+   checkpoint serving one ``tts_fused`` request through ``decode_full``;
+   the hoisted and the scanned step's time (median and quartiles by CUDA
+   events), remat on and off, with peak memory; launches per step, device
+   busy share and the largest kernels (``tools/acoustic_step_profile.py``);
+   mel+mag L1 falling on one fixed batch; one hoisted and one scanned step
+   on the card against the CPU.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
@@ -158,6 +173,17 @@ LSA_TOL = (1e-5, 1e-5, 1e-4)
 TRAIN_UTTS, TEST_UTTS = 68, 4
 GAN_WARM, GAN_TIMED, MSTFT_STEPS, MSTFT_BOOST, MSTFT_FALL = 3, 12, 15, 50.0, 0.9
 STEP_TOL, GEN_TOL = 1e-3, 1e-4
+# Acoustic training (phase 8): a synthetic corpus at DataBaker's mean
+# utterance length; step times by CUDA events after a warm-up; card
+# against CPU with the same weights, batch and dropout masks, float32 with
+# TF32 off: losses within ACOUSTIC_LOSS_TOL relative, gradients within
+# ACOUSTIC_GRAD_TOL of each leaf's norm; mel+mag L1 on a fixed batch below
+# DESCENT_FALL of its start after DESCENT_STEPS steps with the Noam
+# warm-up shortened to DESCENT_WARMUP steps.
+ACOUSTIC_UTTS, SYLLABLES = 160, (8, 16)
+STEP_WARM, STEP_TIMED, PROFILED = 3, 12, 1
+ACOUSTIC_LOSS_TOL, ACOUSTIC_GRAD_TOL = 1e-4, 1e-3
+DESCENT_STEPS, DESCENT_WARMUP, DESCENT_FALL = 40, 40, 0.9
 
 
 def log(*args):
@@ -1446,6 +1472,342 @@ def vocoder_training(device):
         raise AssertionError('loss_mstft did not fall on a fixed batch')
 
 
+# ---------------------------------------------------------------------------
+# phase 8: acoustic-model training on the card
+# ---------------------------------------------------------------------------
+
+def acoustic_corpus(base: str, cfg):
+    """The synthetic Mandarin corpus (``tools/synth_corpus.py``) at
+    DataBaker's utterance length: its syllables take about 25 frames (the
+    corpus's 19.07), so 8-16 syllables give the corpus mean of about 307
+    frames.  Returns the processed data dir and the frame lengths."""
+    from transtacos_retunegan_tpu_torch.data.feeder import AcousticDataset
+    from transtacos_retunegan_tpu_torch.tools.synth_corpus import build_corpus
+    t0 = time.perf_counter()
+    data_dir = build_corpus(base, cfg, n_utts=ACOUSTIC_UTTS, seed=SEED, num_workers=4,
+                            min_syl=SYLLABLES[0], max_syl=SYLLABLES[1])
+    ds = AcousticDataset(data_dir, cfg)
+    frames = np.asarray([ds.frame_len(i) for i in range(len(ds))])
+    syl = np.asarray([len(m[2].split(' ')) for m in ds.metadata])
+    q = np.percentile(frames, [0, 25, 50, 75, 100])
+    log(f'  synthetic corpus: {ACOUSTIC_UTTS} utterances of {SYLLABLES[0]}-{SYLLABLES[1]} '
+        f'syllables, {len(ds)} in train.txt after the 2-sigma filter and the test split, '
+        f'built in {time.perf_counter() - t0:.1f} s; frames mean {frames.mean():.1f} '
+        f'(DataBaker 307), min/quartiles/max {" / ".join(f"{x:.0f}" for x in q)}; '
+        f'{frames.sum() / syl.sum():.2f} frames per syllable')
+    return data_dir, ds
+
+
+def fixed_batch(ds, cfg, rows):
+    """One padded batch of the dataset's items ``rows`` (numpy)."""
+    from transtacos_retunegan_tpu_torch.data.feeder import prepare_batch
+    return prepare_batch([ds.load(i) for i in rows], cfg)
+
+
+def loader_time(ds, cfg):
+    """Host ms to load and pad a batch: from disk, then from the cache."""
+    b = cfg.acoustic.batch_size
+    rows = list(range(len(ds) - b, len(ds)))
+    t0 = time.perf_counter()
+    fixed_batch(ds, cfg, rows)
+    first = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        fixed_batch(ds, cfg, rows)
+    cached = 1e3 * (time.perf_counter() - t0) / 5
+    return first, cached
+
+
+def acoustic_cli_run(data_dir: str, run_dir: str):
+    """``train_acoustic`` on the card at the default Config: a run to step
+    24 with a checkpoint at step 20, then a restart to step 30 that resumes
+    from it.  Every step's state and losses are recorded; the restored
+    optimizer state is held to the checkpoint's."""
+    import copy
+    from transtacos_retunegan_tpu_torch.train import checkpoint as ckpt
+    from transtacos_retunegan_tpu_torch.train import train_acoustic as ta
+    real = {'train_step': ta.train_step, 'train_step_hoisted': ta.train_step_hoisted}
+    real_restore = ckpt.restore_acoustic
+    calls, restored = [], {}
+
+    def recording(name):
+        def step(cfg, state, batch, draws):
+            calls.append((name, state.step))
+            state, losses = real[name](cfg, state, batch, draws)
+            calls[-1] += (losses,)
+            return state, losses
+        return step
+
+    def restore(run, state):
+        out = real_restore(run, state)
+        if out is not None:
+            restored['state'] = copy.deepcopy(state.opt.state_dict())
+            restored['step'] = state.step
+        return out
+
+    argv = ['--data_dir', data_dir, '--log_path', run_dir, '--log_interval', '4',
+            '--summary_interval', '1000', '--checkpoint_interval', '20']
+    for name in real:
+        setattr(ta, name, recording(name))
+    ta.ckpt.restore_acoustic = restore
+    try:
+        t0 = time.perf_counter()
+        ta.main(argv + ['--max_steps', '24'])
+        t_a = time.perf_counter() - t0
+        steps_a = len(calls)
+        saved = torch.load(ckpt.scan_checkpoint(run_dir, 'ckpt_'), map_location='cpu')
+        t0 = time.perf_counter()
+        ta.main(argv + ['--max_steps', '30'])
+        t_b = time.perf_counter() - t0
+    finally:
+        for name, fn in real.items():
+            setattr(ta, name, fn)
+        ta.ckpt.restore_acoustic = real_restore
+    opt_saved, opt_back = saved['opt_state']['state'], restored['state']['state']
+    opt_equal = (opt_saved.keys() == opt_back.keys() and all(
+        torch.equal(opt_saved[k][f].cpu(), opt_back[k][f].cpu())
+        for k in opt_saved for f in ('step', 'exp_avg', 'exp_avg_sq')))
+    adam_steps = {float(v['step']) for v in opt_back.values()}
+    finite = all(bool(torch.isfinite(torch.stack([v for v in c[2].values()
+                                                  if isinstance(v, torch.Tensor)])).all())
+                 for c in calls)
+    kinds = sorted({c[0] for c in calls})
+    log(f'  train_acoustic run A: {steps_a} steps in {t_a:.1f} s (dataset, init, eval dump '
+        f'included), checkpoint step {saved["step"]}; run B resumed at step '
+        f'{calls[steps_a][1]}, {len(calls) - steps_a} steps in {t_b:.1f} s; optimizer state '
+        f'restored equal to the checkpoint: {opt_equal} (Adam step {adam_steps}); steps '
+        f'taken by {kinds}; every loss finite: {finite}; loss '
+        f'{float(calls[0][2]["loss"]):.3f} at step 0, {float(calls[-1][2]["loss"]):.3f} '
+        f'at step {calls[-1][1]}')
+    if not (steps_a == 24 and saved['step'] == 20 and restored.get('step') == 20
+            and calls[steps_a][1] == 20 and len(calls) - steps_a == 10 and opt_equal
+            and adam_steps == {20.0} and finite):
+        raise AssertionError('the acoustic training run did not train, checkpoint or resume')
+
+
+def acoustic_step_times(cfg, device, batch):
+    """Median and quartiles (CUDA events) of STEP_TIMED steps after
+    STEP_WARM, for the hoisted step (before the teacher-forcing decay) and
+    the scanned step (state.step past it, so tfr < 1), remat on and off;
+    peak memory of each."""
+    from transtacos_retunegan_tpu_torch.train import acoustic_step as A
+    from transtacos_retunegan_tpu_torch.train.train_acoustic import make_draws
+    hp = cfg.acoustic
+    out = {}
+    for remat in (True, False):
+        c = dataclasses.replace(cfg, acoustic=dataclasses.replace(hp, remat_decoder=remat))
+        for name, fn, step0 in (('hoisted', A.train_step_hoisted, 0),
+                                ('scanned', A.train_step, hp.tf_start_decay + 10000)):
+            state = A.init_state(c, SEED, device)
+            state.step = step0
+            draws = make_draws(SEED, device)
+            for _ in range(STEP_WARM):
+                fn(c, state, batch, draws)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            marks = [torch.cuda.Event(enable_timing=True) for _ in range(STEP_TIMED + 1)]
+            marks[0].record()
+            for i in range(STEP_TIMED):
+                fn(c, state, batch, draws)
+                marks[i + 1].record()
+            torch.cuda.synchronize()
+            ms = [marks[i].elapsed_time(marks[i + 1]) for i in range(STEP_TIMED)]
+            out[(name, remat)] = float(np.median(ms))
+            log(f'  {name} step, remat {"on" if remat else "off"}: {quartiles(ms)} '
+                f'({STEP_TIMED} after {STEP_WARM} warm-up); max_memory_allocated '
+                f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; '
+                f'{threading.active_count()} Python threads')
+    return out
+
+
+def acoustic_profile(cfg, device, batch):
+    """Launches per step, device busy share and the largest kernels of the
+    hoisted and the scanned step at the default Config (remat on;
+    ``tools/acoustic_step_profile.py``): STEP_WARM warm-up steps, PROFILED
+    steps timed by CUDA events, the same number under the profiler
+    (kernels only)."""
+    from transtacos_retunegan_tpu_torch.tools.acoustic_step_profile import profile_steps
+    from transtacos_retunegan_tpu_torch.train import acoustic_step as A
+    for name, fn, step0 in (('hoisted', A.train_step_hoisted, 0),
+                            ('scanned', A.train_step, cfg.acoustic.tf_start_decay + 10000)):
+        state = A.init_state(cfg, SEED, device)
+        state.step = step0
+        step_ms, busy_ms, launches, wall_ms, top = profile_steps(
+            cfg, state, batch, fn, PROFILED, STEP_WARM)
+        log(f'  profile, {name} step: {step_ms:.2f} ms per step (CUDA events, profiler off), '
+            f'kernels {busy_ms:.2f} ms, device busy {100 * busy_ms / step_ms:.1f}%, '
+            f'{launches:.0f} kernel launches per step, {1e3 * step_ms / launches:.1f} µs '
+            f'of step per launch ({wall_ms:.2f} ms on the host clock with the profiler '
+            'on); largest: '
+            + '; '.join(f'{k[:60]} {ms:.3f} ms x{n:.0f}' for k, ms, n in top[:4]))
+
+
+def grad_errors(model, ref_model, global_norm: float):
+    """Over the parameters: the largest difference of a leaf's gradient
+    from the reference's over the larger of that leaf's norm and 1e-6 of
+    the global norm (the attention keys' biases have a gradient that is 0
+    in exact arithmetic: a constant per query row under the softmax), as
+    (name, ratio)."""
+    ref = dict(ref_model.named_parameters())
+    worst = ('', 0.0)
+    for name, p in model.named_parameters():
+        g, rg = p.grad.cpu(), ref[name].grad
+        ratio = float((g - rg).abs().max()) / max(float(rg.norm()), 1e-6 * global_norm)
+        if ratio > worst[1]:
+            worst = (name, ratio)
+    return worst
+
+
+def acoustic_card_vs_cpu(cfg, device, batch_np):
+    """One hoisted and one scanned step of the default Config on the card
+    and on the CPU from the same seeded weights and batch, the prenet's
+    dropout masks drawn once on the CPU and given to both, the Gaussian
+    noises off (std 1e-5; a generator draws other numbers on each device).
+    Losses within ACOUSTIC_LOSS_TOL relative, gradients within
+    ACOUSTIC_GRAD_TOL of each leaf's norm (``grad_errors``)."""
+    from transtacos_retunegan_tpu_torch.models.layers import Draws, keep_mask
+    from transtacos_retunegan_tpu_torch.train import acoustic_step as A
+    hp = cfg.acoustic
+    cpu_b = {k: torch.from_numpy(np.asarray(v)) for k, v in batch_np.items()}
+    s, b = cpu_b['mel_targets'].shape[1] // hp.outputs_per_step, cpu_b['text'].shape[0]
+    g = torch.Generator().manual_seed(SEED)
+    keep = [keep_mask((s, b, w), 0.5, g, 'cpu') for w in hp.prenet_depths]
+    worst = {}
+    for name, fn, step0 in (('hoisted', A.train_step_hoisted, 0),
+                            ('scanned', A.train_step, hp.tf_start_decay + 10000)):
+        runs = {}
+        for where, dev in (('cpu', torch.device('cpu')), ('gpu', device)):
+            state = A.init_state(cfg, SEED, dev)
+            state.step = step0
+            t0 = time.perf_counter()
+            _, losses = fn(cfg, state, {k: v.to(dev) for k, v in cpu_b.items()},
+                           Draws(prenet_keep=[k.to(dev) for k in keep]))
+            runs[where] = (state.model, {k: float(v) for k, v in losses.items()},
+                           time.perf_counter() - t0)
+        ref = runs['cpu'][1]
+        rel = {k: abs(runs['gpu'][1][k] - v) / max(abs(v), 1e-6) for k, v in ref.items()}
+        wl = max(rel, key=rel.get)
+        wg = grad_errors(runs['gpu'][0], runs['cpu'][0], ref['grad_norm'])
+        worst[name] = (rel[wl], wg[1])
+        log(f'  {name} step, B={b}, {s} decode steps, card vs CPU (CPU step '
+            f'{runs["cpu"][2]:.1f} s): loss {ref["loss"]:.5f}, worst loss term {wl} '
+            f'{rel[wl]:.2e} relative (tol {ACOUSTIC_LOSS_TOL:.0e}); worst gradient leaf '
+            f'{wg[0]} {wg[1]:.2e} of its norm (tol {ACOUSTIC_GRAD_TOL:.0e})')
+    if not all(l <= ACOUSTIC_LOSS_TOL and gr <= ACOUSTIC_GRAD_TOL for l, gr in worst.values()):
+        raise AssertionError('the acoustic step on the card disagrees with the CPU')
+
+
+def acoustic_descent(cfg, device, batch):
+    """DESCENT_STEPS hoisted steps on one fixed batch from the seeded start
+    with warmup_steps=DESCENT_WARMUP (the default 4000 puts the Noam rate
+    at 2.5e-7 on step 0), remat off (the same function, in less time): mel+mag
+    L1 must end below DESCENT_FALL of its first value."""
+    from transtacos_retunegan_tpu_torch.train import acoustic_step as A
+    from transtacos_retunegan_tpu_torch.train.train_acoustic import make_draws
+    c = dataclasses.replace(cfg, acoustic=dataclasses.replace(
+        cfg.acoustic, warmup_steps=DESCENT_WARMUP, remat_decoder=False))
+    state = A.init_state(c, SEED, device)
+    draws = make_draws(SEED, device)
+    l1 = []
+    for _ in range(DESCENT_STEPS):
+        _, losses = A.train_step_hoisted(c, state, batch, draws)
+        l1.append(losses['mel_loss'] + losses['mag_loss'])
+    l1 = [float(x) for x in torch.stack(l1).cpu()]
+    log(f'  mel+mag L1 on one fixed batch over {DESCENT_STEPS} hoisted steps from the seeded '
+        f'start, warmup_steps shortened to {DESCENT_WARMUP} (default 4000), remat off: '
+        + ' '.join(f'{x:.3f}' for x in l1[::5]) + f' ... {l1[-1]:.4f}; last/first '
+        f'{l1[-1] / l1[0]:.3f} (must be below {DESCENT_FALL})')
+    if not l1[-1] < DESCENT_FALL * l1[0]:
+        raise AssertionError('the acoustic loss did not fall on a fixed batch')
+
+
+def fast_cell_decode(fd, device):
+    """The whole-decode kernel on a seeded stock cell and on the fused
+    layout of it (``decoder_fast.fuse_cell_params``), float32 weights,
+    B=4, N=48, no stop: the two decodes agree within the float32 kernel
+    tolerance."""
+    from transtacos_retunegan_tpu_torch.config import Config
+    from transtacos_retunegan_tpu_torch.models.decoder_fast import (DecoderCellFast,
+                                                                    fuse_cell_params)
+    stock = full_width_cell(device)
+    fast = DecoderCellFast(Config()).to(device)
+    fast.load_state_dict(fuse_cell_params(stock.state_dict()))
+    outs = []
+    for cell in (stock, fast):
+        fp = fd.fold_params(cell, torch.float32)
+        fp.f['bs'].fill_(-20.0)
+        mem = memory(fp.dims, 4, 48, device, seed=8)
+        outs.append(fd.to_outputs(fp, *fd.decode_full(fp, *mem, 100)))
+    errs = errors(fp, outs[1], outs[0])
+    log(f'  decode_full, stock cell against its fused layout (fast_cell), B=4, N=48, 100 '
+        f'steps, float32: {err_text(errs, torch.float32)}')
+    if not within(errs, torch.float32):
+        raise AssertionError('the fused-layout cell decodes differently')
+
+
+def served_from_checkpoint(fd, run_dir: str, device):
+    """The run's newest checkpoint serves one ``tts_fused`` request through
+    the decode kernel; returns the launches."""
+    from transtacos_retunegan_tpu_torch.serve.pipeline import Synthesizer
+    from transtacos_retunegan_tpu_torch.train.checkpoint import load_acoustic_params
+    synth = Synthesizer(acoustic_params=load_acoustic_params(run_dir), device=device)
+    for k in fd.LAUNCHES:
+        fd.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    wav = synth.tts_fused(REQUESTS[0])
+    ms = 1e3 * (time.perf_counter() - t0)
+    launches = dict(fd.LAUNCHES)
+    log(f'  the trained checkpoint serves tts_fused({REQUESTS[0]!r}): {ms:.1f} ms, '
+        f'{len(wav)} samples, launches {launches}')
+    if launches['decode_full'] != 1 or not np.isfinite(wav).all() or not len(wav):
+        raise AssertionError('the trained checkpoint did not serve through decode_full')
+    return launches
+
+
+def acoustic_training(fd, device):
+    """Phase 8; returns the kernel launches of its served request."""
+    import tempfile
+    from transtacos_retunegan_tpu_torch.config import Config
+    cfg = Config()
+    hp = cfg.acoustic
+    log(f'  default Config: H={hp.decoder_depth}, A={hp.attention_depth}, '
+        f'D={hp.encoder_depth}, r={hp.outputs_per_step}, {hp.decoder_layers} GRUs, prenet '
+        f'{hp.prenet_depths}, encoder {hp.encoder_type} (fusenet {hp.encoder_fusenet}), '
+        f'B={hp.batch_size}, tf_method {hp.tf_method}, remat_decoder {hp.remat_decoder}, '
+        'float32 (TF32 off)')
+
+    def part(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f'  ({fn.__name__}: {time.perf_counter() - t0:.1f} s)')
+        return out
+
+    part(fast_cell_decode, fd, device)
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir, ds = part(acoustic_corpus, f'{tmp}/corpus', cfg)
+        first, cached = loader_time(ds, cfg)
+        rows = sorted(range(len(ds)), key=ds.frame_len)[-hp.batch_size:]
+        batch_np = fixed_batch(ds, cfg, rows)
+        n, t = batch_np['text'].shape[1], batch_np['mel_targets'].shape[1]
+        log(f'  fixed batch (the {hp.batch_size} longest): text padded to N={n}, frames to '
+            f'T={t}, T/r={t // hp.outputs_per_step} decode steps; loader, ms per batch of '
+            f'{hp.batch_size}: {first:.1f} from disk, {cached:.2f} cached')
+        for k in fd.LAUNCHES:
+            fd.LAUNCHES[k] = 0
+        part(acoustic_cli_run, data_dir, f'{tmp}/run')
+        if any(fd.LAUNCHES.values()):
+            raise AssertionError(f'training launched a serving kernel: {fd.LAUNCHES}')
+        launches = part(served_from_checkpoint, fd, f'{tmp}/run', device)
+    batch = {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in batch_np.items()}
+    times = part(acoustic_step_times, cfg, device, batch)
+    log(f'  host loader: {cached:.2f} ms per cached batch against a '
+        f'{times[("hoisted", True)]:.1f} ms hoisted step')
+    part(acoustic_profile, cfg, device, batch)
+    part(acoustic_descent, cfg, device, batch)
+    part(acoustic_card_vs_cpu, cfg, device, batch_np)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -1501,6 +1863,14 @@ def main() -> int:
     t0 = time.perf_counter()
     vocoder_training(device)
     log(f'  phase 7 took {time.perf_counter() - t0:.1f} s; it launches none of the kernels')
+
+    log('== phase 8: acoustic training on the card (train_acoustic, default Config)')
+    t0 = time.perf_counter()
+    served = acoustic_training(fd, device)
+    launches = {k: launches[k] + served.get(k, 0) for k in launches}
+    log(f'  phase 8 took {time.perf_counter() - t0:.1f} s; training launches none of the '
+        f'kernels, its served request {served}; LAUNCHES over the paths of phases 4, 5 and '
+        f'8: {launches}')
 
     sources = {'decode_step': 'fused_decoder.cu', 'decode_full': 'fused_decoder.cu',
                'lsa_step': 'lsa_step.cu'}

@@ -442,3 +442,74 @@ def test_train_vocoder_on_the_card(cuda, tmp_path):
     assert saved['step'] == 2
     assert all(v.is_cuda for v in torch.load(tmp_path / 'run' / 'g_00000002')
                ['generator'].values())
+
+
+# ---------------------------------------------------------------------------
+# acoustic training and the fused-layout cell
+# ---------------------------------------------------------------------------
+
+def _acoustic_cfg():
+    base = Config()
+    return dataclasses.replace(base, acoustic=dataclasses.replace(
+        base.acoustic, embed_depth=32, encoder_depth=32, decoder_depth=64,
+        attention_depth=16, prenet_depths=(32,), posnet_depth=64, var_embed_depth=16,
+        var_prednet_depth=16, prdsnet_depth=16, posenc_depth=8, batch_size=4,
+        frame_bucket=40))
+
+
+@pytest.mark.parametrize('step', ['hoisted', 'scanned'])
+def test_acoustic_step_on_the_card_matches_the_cpu(cuda, step):
+    """One acoustic train step from the same seeded weights, batch and
+    prenet masks (noise off) on the card and on the CPU: every loss within
+    1e-4 relative, each leaf's gradient within 1e-3 of the larger of its
+    norm and 1e-6 of the global norm (the attention keys' biases have a
+    gradient that is 0 in exact arithmetic)."""
+    from transtacos_retunegan_tpu_torch.models.layers import Draws, keep_mask
+    from transtacos_retunegan_tpu_torch.tools.acoustic_step_profile import seeded_batch
+    from transtacos_retunegan_tpu_torch.train import acoustic_step as A
+    cfg = _acoustic_cfg()
+    batch = seeded_batch(cfg, 4, 60, 16, seed=2, device='cpu')
+    s = batch['mel_targets'].shape[1] // cfg.acoustic.outputs_per_step
+    keep = [keep_mask((s, 4, w), 0.5, torch.Generator().manual_seed(1), 'cpu')
+            for w in cfg.acoustic.prenet_depths]
+    fn, step0 = ((A.train_step_hoisted, 0) if step == 'hoisted'
+                 else (A.train_step, cfg.acoustic.tf_start_decay + 10000))
+    runs = {}
+    for where in ('cpu', cuda):
+        state = A.init_state(cfg, 7, where)
+        state.step = step0
+        _, losses = fn(cfg, state, {k: v.to(where) for k, v in batch.items()},
+                       Draws(prenet_keep=[k.to(where) for k in keep]))
+        runs[str(where)] = ({k: float(v) for k, v in losses.items()},
+                            {n: p.grad.cpu() for n, p in state.model.named_parameters()})
+    (lc, gc), (lg, gg) = runs['cpu'], runs[str(cuda)]
+    for k in lc:
+        assert abs(lg[k] - lc[k]) <= 1e-4 * abs(lc[k]) + 1e-9, k
+    for n, g in gc.items():
+        assert float((gg[n] - g).abs().max()) <= 1e-3 * max(float(g.norm()),
+                                                             1e-6 * lc['grad_norm']), n
+
+
+def test_fast_cell_decodes_like_the_stock_cell_through_the_kernels(cuda):
+    """The whole-decode kernel on a stock cell and on its fused layout
+    (``fuse_cell_params``): the two decodes agree, and the fused one agrees
+    with its plain version (float32 weights, 1e-4)."""
+    from transtacos_retunegan_tpu_torch.models.decoder_fast import (DecoderCellFast,
+                                                                    fuse_cell_params)
+    fp, mem = _problem(cuda, torch.float32)
+    stock = seeded_init(DecoderCell(_cfg()), 3)
+    g = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for name, p in stock.named_parameters():
+            if name.endswith('bias'):
+                p.copy_(0.3 * torch.randn(p.shape, generator=g))
+        stock.stop_projection.bias.fill_(-20.0)
+    fast = DecoderCellFast(_cfg())
+    fast.load_state_dict(fuse_cell_params(stock.state_dict()))
+    fps = [fd.fold_params(c.to(cuda), torch.float32) for c in (stock, fast)]
+    before = fd.LAUNCHES['decode_full']
+    got = [fd.fused_decode_full(f, *mem, STEPS) for f in fps]
+    assert fd.LAUNCHES['decode_full'] == before + 2
+    _close(got[1], got[0], torch.float32)
+    _close(got[1], fd.to_outputs(fps[1], *fd.decode_full_plain(fps[1], *mem, STEPS)),
+           torch.float32)

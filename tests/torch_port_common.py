@@ -270,3 +270,112 @@ def exact_zero_imag_stft_ri(stft_ri):
             keep[:, -1] = False
         return re, jnp.where(keep, im, 0.0)
     return patched
+
+
+# ---------------------------------------------------------------------------
+# acoustic training (test_torch_port_acoustic_*.py)
+# ---------------------------------------------------------------------------
+
+ACOUSTIC_KEYS = ('text', 'text_lengths', 'prds', 'spec_lengths', 'mel_targets',
+                 'f0_targets', 'c0_targets')
+
+
+def acoustic_cfg_pair(**acoustic):
+    """``tests/test_train_cli.py``'s tiny configuration (B=2, frame bucket
+    40) in both packages' Config classes."""
+    return cfg_pair(**{'batch_size': 2, 'frame_bucket': 40, **acoustic})
+
+
+@functools.lru_cache(maxsize=None)
+def _acoustic_shapes(cfg):
+    return jax.eval_shape(lambda: _tacotron_state(cfg))
+
+
+def _tacotron_state(cfg):
+    import jax.numpy as jnp
+    from transtacos_retunegan_tpu.train.acoustic_step import init_state
+    r = cfg.acoustic.outputs_per_step
+    batch = {
+        'text': jnp.zeros((1, 8, 2), jnp.int32), 'text_lengths': jnp.asarray([8]),
+        'prds': jnp.zeros((1, 8), jnp.int32), 'spec_lengths': jnp.asarray([4 * r]),
+        'mel_targets': jnp.zeros((1, 4 * r, cfg.audio.n_mel)),
+        'f0_targets': jnp.zeros((1, 4 * r), jnp.int32),
+        'c0_targets': jnp.zeros((1, 4 * r), jnp.int32),
+    }
+    state = init_state(cfg, jax.random.PRNGKey(0), batch)
+    return state.params, state.extra_vars
+
+
+def acoustic_tree(cfg, seed: int = 3, with_stats: bool = False):
+    """Random values on the shapes of the JAX Tacotron's training tree;
+    with ``with_stats`` also its batch statistics (None for the 'sa'
+    encoder) as (params, batch_stats), the variances positive."""
+    params, extra = _acoustic_shapes(cfg)
+    tree = random_tree(params, seed)
+    if not with_stats:
+        return tree
+    if 'batch_stats' not in extra:
+        return tree, None
+    stats = random_tree(extra['batch_stats'], seed + 1)
+    stats = jax.tree_util.tree_map_with_path(
+        lambda p, v: np.abs(v) + 0.5 if p[-1].key == 'var' else v, stats)
+    return tree, stats
+
+
+def acoustic_batch(cfg, seed: int = 0):
+    """A numpy batch in the feeder's layout: B=2, text 12 and 9 of 16
+    positions, spectrograms of 33 and 27 frames padded to 40 (8 decode
+    steps), loss lengths 35 frames and 12 text positions."""
+    r = np.random.RandomState(seed)
+    au = cfg.audio
+    b, n, t = 2, 16, 40
+    tl, sl = np.array([12, 9], np.int32), np.array([33, 27], np.int32)
+    text = np.zeros((b, n, 2), np.int32)
+    prds = np.zeros((b, n), np.int32)
+    stop = np.ones((b, t), np.float32)
+    for i in range(b):
+        text[i, :tl[i], 0] = r.randint(1, 40, tl[i])
+        text[i, :tl[i], 1] = r.randint(0, au.n_tone, tl[i])
+        prds[i, :tl[i]] = r.randint(0, au.n_prds, tl[i])
+        stop[i, :sl[i]] = 0.0
+    return {'text': text, 'text_lengths': tl, 'prds': prds, 'spec_lengths': sl,
+            'mel_targets': r.randn(b, t, au.n_mel).astype(np.float32),
+            'mag_targets': r.randn(b, t, au.n_freq - 1).astype(np.float32),
+            'f0_targets': r.randint(0, au.n_f0_bins, (b, t)).astype(np.int32),
+            'c0_targets': r.randint(0, au.n_c0_bins, (b, t)).astype(np.int32),
+            'stop_token_targets': stop,
+            'frame_loss_len': np.asarray(35, np.int32),
+            'text_loss_len': np.asarray(12, np.int32)}
+
+
+def coin_of(step_inputs):
+    """The 'random' teacher-forcing coin of each decode step, a function
+    of that step's input frame [..., B, M] (float32, the same in numpy
+    and in jax.numpy)."""
+    x = step_inputs[..., 0, 0]
+    return (abs(x) * np.float32(7.31) + np.float32(0.37)) % np.float32(1.0)
+
+
+def acoustic_interceptor(next_fun, args, kwargs, context):
+    """``flax.linen.intercept_methods`` interceptor: ``nn.Dropout`` and
+    ``GaussianNoise`` are identities, and a training decoder cell with
+    ``tf_method='random'`` takes its coin from ``coin_of`` of its input
+    (the cell's own coin still runs, against a ratio of 2 or -1 that
+    decides it)."""
+    import flax.linen as fnn
+    import jax.numpy as jnp
+    from transtacos_retunegan_tpu.models import decoder as jdec
+    from transtacos_retunegan_tpu.models import decoder_fast as jfast
+    from transtacos_retunegan_tpu.models import layers as jl
+    m = context.module
+    if context.method_name != '__call__':
+        return next_fun(*args, **kwargs)
+    if isinstance(m, (fnn.Dropout, jl.GaussianNoise)):
+        return args[0]
+    if (isinstance(m, (jdec.DecoderCell, jfast.DecoderCellFast)) and m.mode == 'train'
+            and m.cfg.acoustic.tf_method == 'random'):
+        (carry, attn, tfr), xs = args
+        coin = coin_of(xs['target_prev'])
+        (c, a, _), ys = next_fun((carry, attn, jnp.where(coin < tfr, 2.0, -1.0)), xs)
+        return (c, a, tfr), ys
+    return next_fun(*args, **kwargs)

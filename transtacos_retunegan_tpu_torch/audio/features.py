@@ -3,8 +3,10 @@
 vocoder dataset's items are bit-identical to the JAX package's): wav
 load/save and alignment, a numpy STFT, centred framing, RMS energy,
 zero-crossing rate and the u/v mask, silence trimming with
-``librosa.effects.trim`` semantics, and the pitch / tempo / gain and
-SpecAugment-style augmentations of the vocoder's training data."""
+``librosa.effects.trim`` semantics, YIN pitch tracking and the f0/c0
+quantization of the acoustic model's training data, and the pitch / tempo
+/ gain and SpecAugment-style augmentations of the vocoder's training
+data."""
 
 from __future__ import annotations
 
@@ -130,6 +132,93 @@ def get_zcr(y: np.ndarray, cfg: AudioConfig) -> np.ndarray:
 def get_uv(zcr: np.ndarray, dyn: np.ndarray) -> np.ndarray:
     """Hand-tuned unvoiced mask (reference ``retunegan/audio.py:108-113``)."""
     return ((zcr > 0.18) | (dyn < 0.03)).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# YIN pitch tracking (first-party; librosa.yin semantics)
+# ---------------------------------------------------------------------------
+
+def yin(y: np.ndarray, fmin: float, fmax: float, sr: int, frame_length: int,
+        hop_length: int, trough_threshold: float = 0.1) -> np.ndarray:
+    """Fundamental-frequency track via YIN (de Cheveigné & Kawahara 2002).
+
+    Matches librosa.yin's formulation: half-window difference function via FFT
+    autocorrelation, cumulative-mean normalization, first trough below the
+    threshold with parabolic interpolation, global min fallback.
+    Returns ``[n_frames,]`` Hz with ``n_frames = 1 + len(y)//hop``.
+    Reference usage: ``transtacos/audio.py:107-109``.
+    """
+    win_length = frame_length // 2
+    min_period = max(int(np.ceil(sr / fmax)), 1)
+    max_period = min(int(np.floor(sr / fmin)), frame_length - win_length - 1)
+
+    frames = _frame_centered(y.astype(np.float64), frame_length, hop_length,
+                             'constant')                      # [T, frame]
+    # difference function d[tau] = e0 + e[tau] - 2*acf[tau], window W=win_length
+    a = np.fft.rfft(frames, frame_length, axis=-1)
+    b = np.fft.rfft(frames[..., win_length::-1], frame_length, axis=-1)
+    acf = np.fft.irfft(a * b, frame_length, axis=-1)[..., win_length:]
+    acf[np.abs(acf) < 1e-6] = 0.0
+
+    energy = np.cumsum(frames ** 2, axis=-1)
+    energy = energy[..., win_length:] - energy[..., :-win_length]
+    energy[np.abs(energy) < 1e-6] = 0.0
+
+    d = energy[..., :1] + energy - 2 * acf                    # [T, lags]
+
+    # cumulative-mean-normalized difference over tau = 1..max_period
+    tau = np.arange(1, max_period + 1)
+    cmean = np.cumsum(d[..., 1:max_period + 1], axis=-1) / tau
+    cmndf = d[..., min_period:max_period + 1] / (cmean[..., min_period - 1:] + 1e-30)
+
+    # parabolic interpolation shifts around each lag
+    shifts = np.zeros_like(cmndf)
+    if cmndf.shape[-1] >= 3:
+        denom = cmndf[..., :-2] - 2 * cmndf[..., 1:-1] + cmndf[..., 2:]
+        numer = cmndf[..., :-2] - cmndf[..., 2:]
+        with np.errstate(divide='ignore', invalid='ignore'):
+            sh = np.where(np.abs(denom) > 1e-12, numer / (2 * denom), 0.0)
+        shifts[..., 1:-1] = np.clip(sh, -0.5, 0.5)
+
+    # first local trough below threshold; fall back to global min
+    is_trough = np.zeros(cmndf.shape, dtype=bool)
+    if cmndf.shape[-1] >= 2:
+        interior = ((cmndf[..., 1:-1] <= cmndf[..., :-2]) &
+                    (cmndf[..., 1:-1] <= cmndf[..., 2:]))
+        is_trough[..., 1:-1] = interior
+        is_trough[..., 0] = cmndf[..., 0] < cmndf[..., 1]
+    below = is_trough & (cmndf < trough_threshold)
+    has = below.any(axis=-1)
+    first = np.argmax(below, axis=-1)
+    gmin = np.argmin(cmndf, axis=-1)
+    pick = np.where(has, first, gmin)
+
+    rows = np.arange(cmndf.shape[0])
+    period = min_period + pick + shifts[rows, pick]
+    return (sr / np.maximum(period, 1e-6)).astype(np.float32)
+
+
+def get_f0(y: np.ndarray, cfg: AudioConfig) -> np.ndarray:
+    return yin(y, cfg.rf0min_hz, cfg.rf0max_hz, cfg.sample_rate,
+               cfg.win_length, cfg.hop_length)
+
+
+# ---------------------------------------------------------------------------
+# f0/c0 quantization (reference ``transtacos/audio.py:117-127``)
+# ---------------------------------------------------------------------------
+
+def hz_to_midi(f):
+    return 12.0 * (np.log2(np.maximum(np.asarray(f, np.float64), 1e-12)) - np.log2(440.0)) + 69.0
+
+
+def quantize_f0(f0: np.ndarray, cfg: AudioConfig) -> np.ndarray:
+    q = hz_to_midi(f0) - cfg.n_f0_min
+    return np.clip(q, 0, cfg.n_f0_bins - 1).astype(np.int32)
+
+
+def quantize_c0(c0: np.ndarray, cfg: AudioConfig) -> np.ndarray:
+    q = (c0 - cfg.c0min) / (cfg.c0max - cfg.c0min) * cfg.n_c0_bins
+    return np.clip(q, 0, cfg.n_c0_bins - 1).astype(np.int32)
 
 
 def _istft_np(spec: np.ndarray, hop_length: int, win_length: int,

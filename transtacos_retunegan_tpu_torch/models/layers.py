@@ -1,15 +1,21 @@
-"""Acoustic-model building blocks (inference), ported from
+"""Acoustic-model building blocks, ported from
 ``transtacos_retunegan_tpu/models/layers.py``.
 
 Activations keep the JAX package's ``[B, T, C]`` layout.  Dense weights are
 torch ``nn.Linear`` (``[out, in]``); conv weights are ``[out, in, k]``.  Each
 module's child names equal the flax module names, so a flax param path maps
 onto a torch state-dict key by joining with ``.`` (see ``weights.py``).
+
+Training draws its random numbers from the ``torch.Generator``s of a
+``Draws`` (the JAX package's 'noise', 'dropout' and 'tf' rng streams); a
+stream left at None is off, which makes the Gaussian noises and the
+dropouts identities.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+from dataclasses import dataclass
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -44,6 +50,47 @@ def attn_mask(xlen: torch.Tensor, max_xlen: int,
                         sequence_mask(ylen, max_ylen))
 
 
+@dataclass
+class Draws:
+    """The random draws of one training forward.  ``noise``, ``dropout``
+    and ``tf``: a ``torch.Generator`` each, on the batch's device, or None
+    for a stream that is off.  ``coins`` [S] replaces the 'random'
+    teacher-forcing coins of the ``tf`` stream, and ``prenet_keep`` (one
+    [S, B, width] mask per prenet layer, scaled as ``keep_mask``'s) the
+    decoder prenet's dropout masks of the ``dropout`` stream."""
+    noise: Optional[torch.Generator] = None
+    dropout: Optional[torch.Generator] = None
+    tf: Optional[torch.Generator] = None
+    coins: Optional[torch.Tensor] = None
+    prenet_keep: Optional[List[torch.Tensor]] = None
+
+
+def gaussian_noise(x: torch.Tensor, std: float,
+                   gen: Optional[torch.Generator]) -> torch.Tensor:
+    """Additive N(0, std) regularizer (the JAX ``GaussianNoise``); the
+    identity when ``gen`` is None or ``std`` is 0."""
+    if gen is None or not std:
+        return x
+    return x + std * torch.randn(x.shape, generator=gen, device=x.device,
+                                 dtype=x.dtype)
+
+
+def keep_mask(shape, rate: float, gen: torch.Generator,
+              device) -> torch.Tensor:
+    """Dropout keep mask, scaled: 1/(1-rate) where kept, 0 elsewhere."""
+    keep = torch.rand(shape, generator=gen, device=device) < 1.0 - rate
+    return keep.float() / (1.0 - rate)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            gen: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout(rate, deterministic=False)``; the identity when
+    ``gen`` is None."""
+    if gen is None:
+        return x
+    return x * keep_mask(x.shape, rate, gen, x.device)
+
+
 def leaky_relu(x: torch.Tensor, slope: float = 0.01) -> torch.Tensor:
     """flax ``nn.leaky_relu`` (default slope 0.01)."""
     return F.leaky_relu(x, slope)
@@ -64,7 +111,12 @@ class Conv(nn.Module):
 
 
 class Prenet(nn.Module):
-    """Dense+ReLU chain at inference (dropout is train-only)."""
+    """Dense+ReLU chain; in training each layer's output is multiplied by
+    its dropout mask (``keep``: one scaled 0/1 tensor per layer, see
+    ``keep_mask``; rate 0.5).  ``F.relu`` has gradient 0 at 0, as flax's
+    ``nn.relu``: the <GO> zero frame with zero biases sits on that tie."""
+
+    RATE = 0.5
 
     def __init__(self, cin: int, layer_sizes: Sequence[int]):
         super().__init__()
@@ -72,9 +124,12 @@ class Prenet(nn.Module):
             self.add_module(f'dense_{i + 1}', nn.Linear(cin, size))
             cin = size
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for layer in self.children():
+    def forward(self, x: torch.Tensor,
+                keep: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        for i, layer in enumerate(self.children()):
             x = F.relu(layer(x))
+            if keep is not None:
+                x = x * keep[i]
         return x
 
 
@@ -150,3 +205,67 @@ class GFFW(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv_pointwise(self.GLU(x))
+
+
+class Highway(nn.Module):
+    """Highway layer: relu(H x) * t + x * (1 - t), t = sigmoid(T x)."""
+
+    def __init__(self, depth: int):
+        super().__init__()
+        self.H = nn.Linear(depth, depth)
+        self.T = nn.Linear(depth, depth)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        t = torch.sigmoid(self.T(x))
+        return F.relu(self.H(x)) * t + x * (1.0 - t)
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` over ``[B, T, C]``: statistics over every axis
+    but the last, the padded frames included; the variance is the biased
+    one, E[x^2] - E[x]^2 clipped at 0; the running statistics (buffers
+    ``mean``/``var``, flax's 'batch_stats') move with momentum 0.99 (torch's
+    0.01) in training and normalise in evaluation; epsilon 1e-5."""
+
+    MOMENTUM, EPS = 0.99, 1e-5
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer('mean', torch.zeros(features))
+        self.register_buffer('var', torch.ones(features))
+
+    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        if train:
+            dims = tuple(range(x.dim() - 1))
+            mean = x.mean(dims)
+            var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.MOMENTUM
+                self.mean.mul_(m).add_((1.0 - m) * mean.detach())
+                self.var.mul_(m).add_((1.0 - m) * var.detach())
+        else:
+            mean, var = self.mean, self.var
+        return (x - mean) * (self.scale * torch.rsqrt(var + self.EPS)) + self.bias
+
+
+class ConvBN(nn.Module):
+    """conv1d + batch norm + activation; the children keep flax's automatic
+    names ``Conv_0`` and ``BatchNorm_0``."""
+
+    def __init__(self, cin: int, filters: int, kernel: int,
+                 activation: Callable = F.relu):
+        super().__init__()
+        self.activation = activation
+        self.Conv_0 = Conv(cin, filters, kernel)
+        self.BatchNorm_0 = BatchNorm(filters)
+
+    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        return self.activation(self.BatchNorm_0(self.Conv_0(x), train))
+
+
+def cosine_similarity_matrix(e: torch.Tensor) -> torch.Tensor:
+    """Pairwise cosine similarity of embedding rows."""
+    n = torch.linalg.vector_norm(e, dim=-1, keepdim=True)
+    return (e @ e.t()) / (n @ n.t() + 1e-8)

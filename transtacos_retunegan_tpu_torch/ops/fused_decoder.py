@@ -45,9 +45,10 @@ import numpy as np
 import torch
 
 from ..models.decoder import out_lengths
+from ..models.decoder_fast import cell_weights
 from . import build
 from .build import device_kind, ptr, stream
-from .lsa_kernel import fold_location_params, lsa_step_plain
+from .lsa_kernel import lsa_step_plain
 
 LAUNCHES: Dict[str, int] = {'decode_step': 0, 'decode_full': 0}
 LAST_GRID: Dict[str, Optional[int]] = {'decode_step': None, 'decode_full': None}
@@ -107,47 +108,40 @@ def _pack(named, dtype, device, extra=0):
 @torch.no_grad()
 def fold_params(cell, dtype: torch.dtype = torch.bfloat16,
                 blocks: Optional[int] = None) -> FoldedParams:
-    """Pack a ``models.decoder.DecoderCell`` into kernel operands, tiled
+    """Pack a decoder cell, ``models.decoder.DecoderCell`` or
+    ``models.decoder_fast.DecoderCellFast``, into kernel operands, tiled
     for a grid of ``blocks`` (default: the card's SM count; 1 on the CPU).
 
-    The location conv's bias is a constant term on the pre-tanh energy
+    Both layouts give the same operands (``decoder_fast.cell_weights``):
+    the location conv's bias is a constant term on the pre-tanh energy
     (``Dense(conv(x) + b_c) == conv'(x) + b_c @ W``), so it folds into the
     attention bias.
     """
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f'weight dtype {dtype} (bfloat16 or float32)')
-    m = cell._modules
-    pre = list(m['decoder_prenet'].children())
-    grus = cell.grus()
-    lsa = m['lsa']
+    cw = cell_weights(cell)
+    pre, grus = cw['prenet'], cw['grus']
     if len(pre) > MAX_PRENET or len(grus) > MAX_GRU:
         raise ValueError(f'at most {MAX_PRENET} prenet layers and {MAX_GRU} GRUs')
-    tw = lambda lin: lin.weight.detach().float().t()            # noqa: E731
-    named_w = [(f'pre{i}', tw(l)) for i, l in enumerate(pre)]
-    named_w.append(('wx', tw(m['rnn_in_proj'])))
-    named_f = [(f'bpre{i}', l.bias.float()) for i, l in enumerate(pre)]
-    named_f.append(('bx', m['rnn_in_proj'].bias.float()))
-    for j, g in enumerate(grus):
-        gm = g._modules
-        named_w += [(f'wi{j}', torch.cat([tw(gm[k]) for k in ('ir', 'iz', 'in')], 1)),
-                    (f'wh{j}', torch.cat([tw(gm[k]) for k in ('hr', 'hz', 'hn')], 1))]
-        named_f += [(f'bi{j}', torch.cat([gm[k].bias.float() for k in ('ir', 'iz', 'in')])),
-                    (f'bhn{j}', gm['hn'].bias.float())]
-    named_w += [('wq', tw(lsa.query_layer)), ('wf', tw(m['frame_projection'])),
-                ('ws', tw(m['stop_projection']))]
-    conv, wloc = lsa.location_convolution, lsa.location_layer.weight.float()
-    named_f += [('loc', fold_location_params(conv.weight.float(), wloc)),
-                ('v', lsa.attention_variable.float()[:, 0]),
-                ('ba', lsa.attention_bias.float() + conv.bias.float() @ wloc.t()),
-                ('bf', m['frame_projection'].bias.float()),
-                ('bs', m['stop_projection'].bias.float())]
+    named_w = [(f'pre{i}', w.float()) for i, (w, _) in enumerate(pre)]
+    named_w.append(('wx', torch.cat([cw['wx_p'], cw['wx_c']]).float()))
+    named_f = [(f'bpre{i}', b.float()) for i, (_, b) in enumerate(pre)]
+    named_f.append(('bx', cw['bx'].float()))
+    for j, (wi, bi, wh, bn) in enumerate(grus):
+        named_w += [(f'wi{j}', wi.float()), (f'wh{j}', wh.float())]
+        named_f += [(f'bi{j}', bi.float()), (f'bhn{j}', bn.float())]
+    named_w += [('wq', cw['wq'].float()), ('wf', cw['wf'].float()),
+                ('ws', cw['ws'].float())]
+    named_f += [('loc', cw['loc'].float()), ('v', cw['v'].float()[:, 0]),
+                ('ba', cw['ba'].float()), ('bf', cw['bf'].float()),
+                ('bs', cw['bs'].float())]
     device = cell.rnn_in_proj.weight.device
     wsrc, w, woff = _pack(named_w, dtype, device, extra=8)     # + a zero slot
     fbuf, f, foff = _pack(named_f, torch.float32, device)
     h = w['wi0'].shape[0]
-    dims = Dims(n_mel=w['pre0'].shape[0], d=w['wx'].shape[0] - pre[-1].out_features,
+    dims = Dims(n_mel=w['pre0'].shape[0], d=w['wx'].shape[0] - pre[-1][0].shape[1],
                 h=h, a=w['wq'].shape[1], r=f['bs'].shape[0],
-                kwin=f['loc'].shape[0], prenet=tuple(l.out_features for l in pre),
+                kwin=f['loc'].shape[0], prenet=tuple(pw.shape[1] for pw, _ in pre),
                 n_gru=len(grus))
     if blocks is None:
         blocks = (torch.cuda.get_device_properties(device).multi_processor_count

@@ -74,8 +74,10 @@ class Synthesizer:
                  infer_dtype: str = 'auto',
                  seed: int = 114514, device='cuda'):
         """``acoustic_params`` / ``gen_params``: a flax param tree (numpy
-        leaves) or the path of one saved with ``weights.save_npz``; seeded
-        random weights when None."""
+        leaves), the path of one saved with ``weights.save_npz``, or the
+        module's own state dict (torch tensors; an acoustic training
+        checkpoint gives one through ``train.checkpoint.load_acoustic_params``);
+        seeded random weights when None."""
         self.device = resolve_device(device)
         self.cfg = cfg or Config()
         self.max_iters = max_iters or self.cfg.acoustic.max_iters
@@ -93,6 +95,9 @@ class Synthesizer:
                                 (self.generator, gen_params, seed + 1)):
             if tree is None:
                 seeded_init(module, s)
+            elif isinstance(tree, dict) and all(isinstance(v, torch.Tensor)
+                                                for v in tree.values()):
+                module.load_state_dict(tree)
             else:
                 load_flax(module, _weights(tree))
             module.to(self.device).eval().requires_grad_(False)

@@ -1,12 +1,16 @@
-"""Vocoder checkpoints, the GAN part of
+"""Checkpoints of both trainers, ported from
 ``transtacos_retunegan_tpu/train/checkpoint.py`` with torch files in place
-of orbax trees.
+of orbax trees, under the JAX package's names and keep counts.
 
-Two files per save, with the JAX package's names and keep counts:
-``g_<step:08d>`` (the generator's state dict, what inference loads) and
-``do_<step:08d>`` (the discriminators, both optimizers' states, step and
-epoch).  ``scan_checkpoint`` finds the newest by sorted prefix match.
-Each file is written under a temporary name and renamed into place.
+* acoustic: one ``ckpt_<step:08d>`` file per save (step, parameters, the
+  batch statistics as ``extra_vars``, the optimizer's state), the newest
+  ``keep`` kept (the config's ``max_ckpt``).
+* vocoder: two files per save, ``g_<step:08d>`` (the generator's state
+  dict, what inference loads) and ``do_<step:08d>`` (the discriminators,
+  both optimizers' states, step and epoch).
+
+``scan_checkpoint`` finds the newest by sorted prefix match.  Each file is
+written under a temporary name and renamed into place.
 """
 
 from __future__ import annotations
@@ -14,7 +18,7 @@ from __future__ import annotations
 import os
 import re
 import shutil
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -44,6 +48,44 @@ def _save(path: str, obj) -> None:
     tmp = f'{path}.{os.getpid()}.tmp'
     torch.save(obj, tmp)
     os.replace(tmp, path)
+
+
+def save_acoustic(run_dir: str, state, keep: int = 1) -> str:
+    """Write ``ckpt_`` of ``state`` (an ``acoustic_step.TrainState``) at its
+    step; keep the newest ``keep``."""
+    os.makedirs(run_dir, exist_ok=True)
+    path = os.path.join(run_dir, f'ckpt_{state.step:08d}')
+    _save(path, {'step': state.step,
+                 'params': {n: p.detach() for n, p in state.model.named_parameters()},
+                 'extra_vars': state.extra_vars,
+                 'opt_state': state.opt.state_dict()})
+    prune_old(run_dir, 'ckpt_', keep)
+    return path
+
+
+def restore_acoustic(run_dir: str, state):
+    """Load the newest ``ckpt_`` into ``state`` in place (model, batch
+    statistics, optimizer, step); None when there is none."""
+    path = scan_checkpoint(run_dir, 'ckpt_')
+    if path is None:
+        return None
+    ck = torch.load(path, map_location=_device(state.model))
+    state.model.load_state_dict({**ck['params'], **ck['extra_vars']})
+    state.opt.load_state_dict(ck['opt_state'])
+    state.step = int(ck['step'])
+    return state
+
+
+def load_acoustic_params(path: str) -> Dict[str, torch.Tensor]:
+    """The ``Tacotron`` state dict (parameters and batch statistics) of an
+    acoustic checkpoint: a ``ckpt_`` file, or the newest in a run dir."""
+    if os.path.isdir(path):
+        found = scan_checkpoint(path, 'ckpt_')
+        if found is None:
+            raise FileNotFoundError(f'no ckpt_ checkpoint in {path}')
+        path = found
+    ck = torch.load(path, map_location='cpu')
+    return {**ck['params'], **ck['extra_vars']}
 
 
 def save_gan(run_dir: str, state, epoch: int, keep: int = 2) -> Tuple[str, str]:

@@ -27,8 +27,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
-import queue
-import threading
 import time
 
 import numpy as np
@@ -36,70 +34,13 @@ import torch
 
 from ..audio import transforms as T
 from ..config import Config
+from ..data.prefetch import device_batches
 from ..data.vocoder_data import VocoderDataset, VocoderLoader
 from ..models.precision import resolve_dtype
 from ..serve.pipeline import resolve_device
 from ..utils.logging import get_logger, host_rss_gb
 from . import checkpoint as ckpt
 from .vocoder_step import gan_eval_step, gan_train_step, init_gan_state
-
-
-def device_batches(loader, device: torch.device, depth: int = 2):
-    """Batches of ``loader`` as tensors on ``device``, copied by a thread
-    up to ``depth`` batches ahead (on the card: pinned host memory, a side
-    stream, ``non_blocking``); a loader error is raised here."""
-    q: 'queue.Queue' = queue.Queue(max(1, depth))
-    done = object()
-    stop = threading.Event()
-    cuda = device.type == 'cuda'
-    stream = torch.cuda.Stream(device) if cuda else None
-
-    def put(item) -> bool:
-        while not stop.is_set():
-            try:
-                q.put(item, timeout=0.1)
-                return True
-            except queue.Full:
-                continue
-        return False
-
-    def worker():
-        try:
-            for b in loader:
-                if cuda:
-                    with torch.cuda.stream(stream):
-                        out = {k: torch.from_numpy(v).pin_memory().to(device, non_blocking=True)
-                               for k, v in b.items()}
-                        ready = torch.cuda.Event()
-                        ready.record(stream)
-                    item = (out, ready)
-                else:
-                    item = ({k: torch.from_numpy(v) for k, v in b.items()}, None)
-                if not put(item):
-                    return
-            put(done)
-        except BaseException as e:               # surfaces in the consumer
-            put(e)
-
-    t = threading.Thread(target=worker, daemon=True)
-    t.start()
-    try:
-        while True:
-            item = q.get()
-            if item is done:
-                return
-            if isinstance(item, BaseException):
-                raise item
-            batch, ready = item
-            if cuda:
-                cur = torch.cuda.current_stream(device)
-                cur.wait_event(ready)
-                for v in batch.values():
-                    v.record_stream(cur)
-            yield batch
-    finally:
-        stop.set()
-        t.join(timeout=10)
 
 
 def _config(args) -> Config:

@@ -38,6 +38,7 @@ from ..models.generators import make_generator
 from ..models.precision import compute_dtype, float32
 from ..serve.pipeline import resolve_device
 from ..weights import seeded_init
+from .optim import clip_by_global_norm_, global_norm, zero_grad_
 
 Batch = Dict[str, torch.Tensor]
 
@@ -106,37 +107,20 @@ def _mean_score(scores: List[torch.Tensor]) -> torch.Tensor:
     return sum(torch.mean(d) for d in scores) / len(scores)
 
 
-def _global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-
-
 def _guarded_update(opt: torch.optim.Optimizer, loss: torch.Tensor, lr: float,
                     clip_norm: float) -> None:
     """NaN guard, optional global-norm clip, then the AdamW update at
     ``lr``, without a host sync."""
     params = [p for group in opt.param_groups for p in group['params']]
     grads = [p.grad for p in params]
-    ok = torch.isfinite(loss) & torch.isfinite(_global_norm(grads))
+    ok = torch.isfinite(loss) & torch.isfinite(global_norm(grads))
     for g in grads:
         g.masked_fill_(~ok, 0.0)
     if clip_norm > 0:
-        norm = _global_norm(grads)
-        small = norm < clip_norm
-        div = torch.where(small, torch.ones_like(norm), norm)
-        mul = torch.where(small, torch.ones_like(norm), torch.full_like(norm, clip_norm))
-        torch._foreach_div_(grads, div)
-        torch._foreach_mul_(grads, mul)
+        clip_by_global_norm_(grads, clip_norm)
     for group in opt.param_groups:
         group['lr'] = lr
     opt.step()
-
-
-def _zero_grad(params) -> None:
-    for p in params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-        else:
-            p.grad.zero_()
 
 
 def discriminator_phase(cfg: Config, state: GANState, y: torch.Tensor,
@@ -151,7 +135,7 @@ def discriminator_phase(cfg: Config, state: GANState, y: torch.Tensor,
         _, specs_r, specs_g_det = L.multi_stft_specs_and_loss(y, y_g_det, cfg)
     d_params = list(disc.parameters())
     for i in range(hv.d_train_times):
-        _zero_grad(d_params)
+        zero_grad_(d_params)
         (sr, sg, _, _), (pr, pg, _, _), (tr, tg, _, _) = _disc_forward(
             cfg, disc, y, y_g_det, specs_r, specs_g_det)
         ls = L.discriminator_loss(sr, sg, cfg)
@@ -190,7 +174,7 @@ def generator_phase(cfg: Config, state: GANState, y: torch.Tensor,
     hv = cfg.vocoder
     gen, disc = state.generator, state.discriminators
     g_params = list(gen.parameters())
-    _zero_grad(g_params)
+    zero_grad_(g_params)
     disc.requires_grad_(False)
     try:
         loss_mstft, sp_r, sp_g = L.multi_stft_specs_and_loss(y, y_g, cfg)

@@ -1,11 +1,14 @@
 """Logging helpers, ported from ``transtacos_retunegan_tpu/utils/logging.py``:
-a stdout + file logger and the process's resident set size."""
+a stdout + file logger, a rolling-average window, a wall-time decorator and
+the process's resident set size."""
 
 from __future__ import annotations
 
+import functools
 import logging
 import os
 import sys
+import time
 from typing import Optional
 
 
@@ -60,3 +63,40 @@ def host_rss_gb() -> float:
         pass
     import resource
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / (1024 ** 2)
+
+
+class ValueWindow:
+    """Rolling average window (reference ``transtacos/utils.py:72-94``)."""
+
+    def __init__(self, window_size: int = 100):
+        self._size = window_size
+        self._values = []
+
+    def append(self, x: float):
+        self._values = self._values[-(self._size - 1):] + [float(x)]
+
+    @property
+    def sum(self) -> float:
+        return sum(self._values)
+
+    @property
+    def count(self) -> int:
+        return len(self._values)
+
+    @property
+    def average(self) -> float:
+        return self.sum / max(1, self.count)
+
+    def reset(self):
+        self._values = []
+
+
+def timer(fn):
+    """Wall-time decorator (reference ``retunegan/utils.py:85-92``)."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        start = time.time()
+        out = fn(*args, **kwargs)
+        print(f'[timer] {fn.__name__} took {time.time() - start:.3f}s')
+        return out
+    return wrapped

@@ -10,7 +10,12 @@ converted per leaf kind:
 * WNConvTranspose ``v [k, in, out]``     -> ``v [in, out, k]``
 * WNConv2d ``v [kh, kw, in, out]``       -> ``v [out, in, kh, kw]``
 * everything else (biases, ``g``/``b``, embeddings, ``attention_variable``,
-  the shared ``noise/w``, the generators' ``alpha``) is copied as is.
+  the shared ``noise/w``, the generators' ``alpha``, the fused decoder
+  cell's ``wi``/``wh``/``bi``/``bn``, batch-norm ``scale``) is copied as is.
+
+A model with batch norm (the acoustic model's CBHG encoder) also takes the
+tree's ``batch_stats`` collection: its ``mean``/``var`` leaves land on the
+modules' buffers of those names.
 
 A tree of several models maps onto a module with one child per top-level
 key, e.g. ``models.discriminators.Discriminators`` for the
@@ -24,7 +29,7 @@ the packages as ``.npz`` files keyed by ``/``-joined paths (``save_npz`` /
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -62,11 +67,14 @@ def _convert(module: nn.Module, path: Tuple[str, ...],
     return '.'.join(path[:-1] + (name,)), leaf
 
 
-def from_flax(module: nn.Module, tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """flax param tree -> state dict of ``module`` (float32, CPU)."""
+def from_flax(module: nn.Module, tree: Dict[str, Any],
+              batch_stats: Optional[Dict[str, Any]] = None) -> Dict[str, torch.Tensor]:
+    """flax param tree (and ``batch_stats`` collection) -> state dict of
+    ``module`` (float32, CPU)."""
     expect = module.state_dict()
     state, bad_shape = {}, []
-    for path, leaf in flatten(tree).items():
+    leaves = list(flatten(tree).items()) + list(flatten(batch_stats or {}).items())
+    for path, leaf in leaves:
         key, arr = _convert(module, path, leaf)
         state[key] = torch.tensor(arr, dtype=torch.float32)
         if key in expect and tuple(expect[key].shape) != tuple(arr.shape):
@@ -82,9 +90,10 @@ def from_flax(module: nn.Module, tree: Dict[str, Any]) -> Dict[str, torch.Tensor
     return state
 
 
-def load_flax(module: nn.Module, tree: Dict[str, Any]) -> nn.Module:
+def load_flax(module: nn.Module, tree: Dict[str, Any],
+              batch_stats: Optional[Dict[str, Any]] = None) -> nn.Module:
     """Copy a flax tree into ``module`` in place (on the module's device)."""
-    module.load_state_dict(from_flax(module, tree), strict=True)
+    module.load_state_dict(from_flax(module, tree, batch_stats), strict=True)
     return module
 
 
@@ -111,15 +120,26 @@ def seeded_init(module: nn.Module, seed: int) -> nn.Module:
     denses and convs, orthogonal GRU hidden kernels, zero biases,
     truncated-normal(0.5) embeddings, kaiming-normal (leaky slope 0.15)
     weight-norm directions (fan-in: every axis but the output channel) with
-    the matching gain ``g``, and the generators' ``alpha`` at 4."""
+    the matching gain ``g``, the generators' ``alpha`` at 4, batch-norm
+    scales at 1, the highway gates' bias at -1, and the fused GRU's ``wi``
+    (lecun-normal) and ``wh`` (three orthogonal blocks) in flax's layout."""
     gen = torch.Generator().manual_seed(seed)
     slope_gain = 2.0 / (1.0 + 0.15 ** 2)
     for name, p in module.named_parameters():
         leaf = name.rsplit('.', 1)[-1]
         parent = name.rsplit('.', 2)[-2] if name.count('.') >= 1 else ''
         shape = p.shape
-        if leaf in ('bias', 'b', 'attention_bias'):
+        if leaf == 'bias' and parent == 'T':
+            val = torch.full(shape, -1.0)
+        elif leaf in ('bias', 'b', 'attention_bias', 'bi', 'bn'):
             val = torch.zeros(shape)
+        elif leaf == 'scale':
+            val = torch.ones(shape)
+        elif leaf == 'wi':
+            val = torch.randn(shape, generator=gen) / shape[0] ** 0.5
+        elif leaf == 'wh':
+            val = torch.cat([torch.linalg.qr(torch.randn(shape[0], shape[0], generator=gen))[0]
+                             for _ in range(shape[1] // shape[0])], 1)
         elif leaf == 'g':
             val = torch.full(shape, slope_gain ** 0.5)
         elif leaf == 'w':
