@@ -32,7 +32,7 @@ exit:
    of 1 and of 100 launches beside its launch floor (``lsa_floor``: an
    empty kernel of the same grid, cluster and shared memory), with its
    cluster size C and tile P.
-4. The main path one request at a time: ``Synthesizer(device='cuda')`` at
+4. The main path one request at a time: ``Synthesizer(devices=['cuda'])`` at
    the default ``Config()`` with seeded weights.  Each request gets a stop
    head under which it stops after the steps its syllables take at the
    training corpus's speaking rate, and its decode on the card is held to
@@ -80,6 +80,21 @@ exit:
    busy share and the largest kernels (``tools/acoustic_step_profile.py``);
    mel+mag L1 falling on one fixed batch; one hoisted and one scanned step
    on the card against the CPU.
+9. Data parallelism (``transtacos_retunegan_tpu_torch/parallel``) at the
+   default ``Config()``: (i) an NCCL group of world size 1 in this process,
+   the acoustic (hoisted) and the GAN step bit for bit as without a group
+   (deterministic algorithms on, see ``deterministic``; the step without
+   a group run twice first as the control), and both steps' times with and without
+   the group (the all-reduce's own cost); (ii) two spawned processes in a
+   gloo group on ``cuda:0``, each on half of the global batch (8 rows):
+   the losses and the averaged gradients against this process's step on
+   the whole batch, in float32 (``DP_ACOUSTIC_TOL``, ``DP_GAN_TOL``) and
+   in float64 (``DP_F64_TOL``), the ranks' parameters bit for bit after
+   timed float32 steps, and the two-rank step times;
+   (iii) ``Synthesizer(devices=['cuda:0', 'cuda:0'])`` (``--dp 2`` on one
+   card): with the launch counters at 0, cohorts of 8 texts, one
+   ``decode_full`` launch per replica, bit for bit as one replica at 4
+   rows, and the cohort's time against one replica at 8 rows.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
@@ -751,7 +766,7 @@ def check_wav(wav: np.ndarray, hop: int, frames: int) -> None:
 def main_path(fd, device):
     from transtacos_retunegan_tpu_torch.serve.httpd import serve
     from transtacos_retunegan_tpu_torch.serve.pipeline import Synthesizer
-    synth = Synthesizer(device=device)
+    synth = Synthesizer(devices=[device])
     hop, r = synth.cfg.audio.hop_length, synth.cfg.acoustic.outputs_per_step
     log(f'  default Config, seeded weights, {FRAMES_PER_SYLLABLE:.3f} frames per syllable')
     plan = plan_requests(fd, synth)
@@ -1127,7 +1142,7 @@ def slice_against_cpu(device):
             posenc_depth=8, max_iters=8),
         vocoder=dataclasses.replace(base.vocoder, upsample_initial_channel=64))
     kw = dict(infer_dtype='float32')
-    gpu, cpu = Synthesizer(cfg, device=device, **kw), Synthesizer(cfg, device='cpu', **kw)
+    gpu, cpu = Synthesizer(cfg, devices=[device], **kw), Synthesizer(cfg, devices=['cpu'], **kw)
     for s in (gpu, cpu):                  # decode every step on both
         s.acoustic.decoder_cell.stop_projection.bias.fill_(-20.0)
         s.decoder = fold_params(s.acoustic.decoder_cell, torch.float32)
@@ -1750,7 +1765,7 @@ def served_from_checkpoint(fd, run_dir: str, device):
     the decode kernel; returns the launches."""
     from transtacos_retunegan_tpu_torch.serve.pipeline import Synthesizer
     from transtacos_retunegan_tpu_torch.train.checkpoint import load_acoustic_params
-    synth = Synthesizer(acoustic_params=load_acoustic_params(run_dir), device=device)
+    synth = Synthesizer(acoustic_params=load_acoustic_params(run_dir), devices=[device])
     for k in fd.LAUNCHES:
         fd.LAUNCHES[k] = 0
     t0 = time.perf_counter()
@@ -1805,6 +1820,394 @@ def acoustic_training(fd, device):
     part(acoustic_profile, cfg, device, batch)
     part(acoustic_descent, cfg, device, batch)
     part(acoustic_card_vs_cpu, cfg, device, batch_np)
+    return launches
+
+
+# Data parallelism (phase 9): the global batches at the default Config
+# (B=16; the acoustic one of 240 frames, 64 decode steps with the
+# frame bucket), the ranks' tolerances
+# against the one-process step on the card (losses relative, gradients of
+# each leaf's norm, floored at 1e-6 of the global norm), timed steps per
+# measurement.  Half a batch runs other cuBLAS/cuDNN algorithms than the
+# whole one, so the ranks' gradients differ from one process's by the
+# sums' order: up to 3.3e-4 of a leaf's norm on an H100 (the posnet's
+# first bias: the L1 loss's +-1 terms cancel in its sum over the frames),
+# as card and CPU differ; both steps are held to 1e-3, and the ranks to
+# each other bit for bit.  The GAN comparison starts both optimizers past
+# their first update (see ``primed``): Adam's first update is a sign, and
+# the generator update runs against the updated discriminators.
+DP_FRAMES, DP_TEXT = 240, 48
+# float32: half a batch runs other cuBLAS/cuDNN algorithms, and leaves that
+# sum terms which cancel (the posnet's first bias, the weight-norm gains)
+# move by a few 1e-4 of their norm with the summation order; in float64
+# the same comparison checks the data-parallel arithmetic alone
+DP_ACOUSTIC_TOL, DP_GAN_TOL, DP_F64_TOL = 1e-3, 1e-3, 1e-5
+DP_TIMED, DP_WARM = 5, 1
+DP_TIMEOUT_S = 600
+
+
+def dp_batches(cfg):
+    """The global acoustic batch, its prenet masks (scaled as
+    ``layers.keep_mask``'s, drawn at the global shape) and the GAN batch,
+    on the CPU, all from SEED (every rank builds the same)."""
+    from transtacos_retunegan_tpu_torch.tools.acoustic_step_profile import seeded_batch
+    hp = cfg.acoustic
+    acoustic = seeded_batch(cfg, hp.batch_size, DP_FRAMES, DP_TEXT, SEED, 'cpu')
+    s = acoustic['mel_targets'].shape[1] // hp.outputs_per_step
+    g = torch.Generator().manual_seed(SEED)
+    keep = [(torch.rand((s, hp.batch_size, w), generator=g) < 0.5).float() / 0.5
+            for w in hp.prenet_depths]
+    r = np.random.RandomState(SEED)
+    b, seg, hop = cfg.vocoder.batch_size, cfg.audio.segment_size, cfg.audio.hop_length
+    gan = {'mel': r.randn(b, seg // hop, cfg.audio.n_mel), 'tmpl': 0.1 * r.randn(b, seg),
+           'wav': 0.1 * r.randn(b, seg)}
+    return acoustic, keep, {k: torch.tensor(v, dtype=torch.float32) for k, v in gan.items()}
+
+
+def primed(opt) -> None:
+    """Adam's state of a run past its first updates (step 1000, zero first
+    moment, second moment 1e-6), so that the next update is smooth in the
+    gradient rather than its sign."""
+    for group in opt.param_groups:
+        for p in group['params']:
+            opt.state[p] = {'step': torch.tensor(1000.0), 'exp_avg': torch.zeros_like(p),
+                            'exp_avg_sq': torch.full_like(p, 1e-6)}
+
+
+def snapshot(named, metrics):
+    return ({n: (p.detach().clone(), p.grad.clone()) for n, p in named},
+            {k: float(v) for k, v in metrics.items()})
+
+
+def dp_first_steps(cfg, device, dtype, acoustic, keep, gan):
+    """This process's share (``parallel.process_shard``: all of it outside
+    a group) of one hoisted acoustic step and one GAN step from SEED in
+    ``dtype``, with the global batch's prenet masks and noise.  Returns
+    the two states and each step's averaged gradients and losses."""
+    from transtacos_retunegan_tpu_torch.models.layers import Draws
+    from transtacos_retunegan_tpu_torch.parallel import current_shard, process_shard
+    from transtacos_retunegan_tpu_torch.train import acoustic_step as A
+    from transtacos_retunegan_tpu_torch.train import vocoder_step as V
+
+    def local(b, sl):
+        return {k: (v[sl] if v.dim() else v).to(device, dtype if v.is_floating_point()
+                                                 else v.dtype) for k, v in b.items()}
+
+    sl = process_shard(cfg.acoustic.batch_size)
+    state = A.init_state(cfg, SEED, device, current_shard())
+    state.model.to(dtype)
+    _, losses = A.train_step_hoisted(cfg, state, local(acoustic, sl), Draws(
+        prenet_keep=[k[:, sl].to(device, dtype) for k in keep]))
+    out = {'acoustic': ({n: p.grad.cpu().clone() for n, p in state.model.named_parameters()},
+                        {k: float(v) for k, v in losses.items()})}
+    gst = V.init_gan_state(cfg, SEED, device, current_shard())
+    gst.generator.to(dtype)
+    gst.discriminators.to(dtype)
+    primed(gst.gen_opt)
+    primed(gst.disc_opt)
+    gsl = process_shard(cfg.vocoder.batch_size)
+    noise = drawn_noise(cfg, gst.generator, local(gan, slice(None)), SEED)
+    _, m = V.gan_train_step(cfg, gst, local(gan, gsl),
+                            [n[gsl].to(device, dtype) for n in noise], 4)
+    params = list(gst.generator.named_parameters()) + [
+        (f'disc.{n}', p) for n, p in gst.discriminators.named_parameters()]
+    out['gan'] = ({n: p.grad.cpu().clone() for n, p in params},
+                  {k: float(v) for k, v in m.items()})
+    return state, gst, out
+
+
+def dp_steps(device, timed: int = DP_TIMED):
+    """``dp_first_steps`` in float32 and in float64 (``*64``), then
+    ``timed`` more float32 steps of each (CUDA events, after DP_WARM), the
+    noise from a generator.  Returns the first steps' losses and averaged
+    gradients, the step times and a hash of the parameters after them."""
+    import hashlib
+    from transtacos_retunegan_tpu_torch.config import Config
+    from transtacos_retunegan_tpu_torch.parallel import process_shard
+    from transtacos_retunegan_tpu_torch.train import acoustic_step as A
+    from transtacos_retunegan_tpu_torch.train import vocoder_step as V
+    from transtacos_retunegan_tpu_torch.train.train_acoustic import make_draws
+    cfg = Config()
+    acoustic, keep, gan = dp_batches(cfg)
+    _, _, out64 = dp_first_steps(cfg, device, torch.float64, acoustic, keep, gan)
+    state, gst, out = dp_first_steps(cfg, device, torch.float32, acoustic, keep, gan)
+    out.update({f'{k}64': v for k, v in out64.items()})
+
+    def times(step):
+        for _ in range(DP_WARM):
+            step()
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(timed + 1)]
+        marks[0].record()
+        for i in range(timed):
+            step()
+            marks[i + 1].record()
+        torch.cuda.synchronize()
+        return [marks[i].elapsed_time(marks[i + 1]) for i in range(timed)]
+
+    sl = process_shard(cfg.acoustic.batch_size)
+    batch = {k: (v[sl] if v.dim() else v).to(device) for k, v in acoustic.items()}
+    draws = make_draws(SEED, device)
+    out['acoustic_ms'] = times(lambda: A.train_step_hoisted(cfg, state, batch, draws))
+    gsl = process_shard(cfg.vocoder.batch_size)
+    gbatch = {k: v[gsl].to(device) for k, v in gan.items()}
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    out['gan_ms'] = times(lambda: V.gan_train_step(cfg, gst, gbatch, gen, 4))
+    h = hashlib.sha1()
+    for module in (state.model, gst.generator, gst.discriminators):
+        for p in module.parameters():
+            h.update(p.detach().cpu().numpy().tobytes())
+    out['hash'] = h.hexdigest()
+    return out
+
+
+def dp_rank(rank: int, port: int, out_dir: str, device: str) -> None:
+    """One rank of phase 9 (ii): joins a gloo group of two on ``device``
+    and saves ``dp_steps`` to ``out_dir``."""
+    import os
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group('gloo', init_method=f'tcp://127.0.0.1:{port}', world_size=2,
+                            rank=rank)
+    try:
+        device = torch.device(device)
+        if device.type == 'cuda':
+            torch.cuda.set_device(device)
+        torch.save(dp_steps(device), os.path.join(out_dir, f'rank{rank}.pt'))
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_errors(got, ref, tol: float):
+    """Worst loss term (relative, 1e-6 absolute floor) and worst gradient
+    leaf (of the larger of its norm and 1e-6 of the global norm) of ``got``
+    against ``ref``, each as (name, ratio); and whether both are within
+    ``tol``.  The attention keys' biases, whose gradient is 0 in exact
+    arithmetic (float32 rounding, a change of summation order moves it by
+    1e-4 of that floor), are held apart: within 1e-6 of the global norm."""
+    (grads, losses), (rgrads, rlosses) = got, ref
+    rel = {k: abs(losses[k] - v) / max(abs(v), 1e-6) for k, v in rlosses.items()}
+    wl = max(rel, key=rel.get)
+    gnorm = float(torch.sqrt(sum((g.double() ** 2).sum() for g in rgrads.values())))
+    diff = {n: float((grads[n] - g).abs().max()) for n, g in rgrads.items()}
+    zero_ok = all(d <= 1e-6 * gnorm for n, d in diff.items() if n.endswith('.k.bias'))
+    ratio = {n: d / max(float(rgrads[n].norm()), 1e-6 * gnorm)
+             for n, d in diff.items() if not n.endswith('.k.bias')}
+    wg = max(ratio, key=ratio.get)
+    return (wl, rel[wl]), (wg, ratio[wg]), rel[wl] <= tol and ratio[wg] <= tol and zero_ok
+
+
+def nccl_world_one(card: str, device):
+    """Phase 9 (i): the acoustic and GAN steps in an NCCL group of world
+    size 1, bit for bit as without a group, and their times with and
+    without it."""
+    import torch.distributed as dist
+    from transtacos_retunegan_tpu_torch.config import Config
+    from transtacos_retunegan_tpu_torch.models.layers import Draws
+    from transtacos_retunegan_tpu_torch.parallel import (current_shard, free_port,
+                                                        maybe_initialize_distributed)
+    from transtacos_retunegan_tpu_torch.train import acoustic_step as A
+    from transtacos_retunegan_tpu_torch.train import vocoder_step as V
+    from transtacos_retunegan_tpu_torch.utils.determinism import deterministic
+    cfg = Config()
+    acoustic, keep, gan = dp_batches(cfg)
+    batch = {k: v.to(device) for k, v in acoustic.items()}
+    draws = Draws(prenet_keep=[k.to(device) for k in keep])
+    gbatch = {k: v.to(device) for k, v in gan.items()}
+    noise = [n.to(device) for n in drawn_noise(
+        cfg, V.init_gan_state(cfg, SEED, device).generator, gbatch, SEED)]
+
+    def acoustic_step():
+        state = A.init_state(cfg, SEED, device, current_shard())
+        _, losses = A.train_step_hoisted(cfg, state, batch, draws)
+        return snapshot(state.model.named_parameters(), losses)
+
+    def gan_step():
+        st = V.init_gan_state(cfg, SEED, device, current_shard())
+        _, m = V.gan_train_step(cfg, st, gbatch, noise, 4)
+        return snapshot(list(st.generator.named_parameters())
+                        + list(st.discriminators.named_parameters()), m)
+
+    def same(a, b):
+        return a[1] == b[1] and all(torch.equal(x, y) for k in a[0]
+                                    for x, y in zip(a[0][k], b[0][k]))
+
+    def step_ms(fn, state_fn):
+        st = state_fn()
+        for _ in range(DP_WARM):
+            fn(st)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DP_TIMED):
+            fn(st)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / DP_TIMED
+
+    def timings():
+        a = step_ms(lambda st: A.train_step_hoisted(cfg, st, batch, draws),
+                    lambda: A.init_state(cfg, SEED, device, current_shard()))
+        g = step_ms(lambda st: V.gan_train_step(cfg, st, gbatch, noise, 4),
+                    lambda: V.init_gan_state(cfg, SEED, device, current_shard()))
+        return a, g
+
+    def group(on: bool):
+        if on:
+            maybe_initialize_distributed(f'127.0.0.1:{free_port()}', 1, 0, device=device)
+        else:
+            dist.destroy_process_group()
+
+    with deterministic() as notes:
+        ref = {'acoustic': acoustic_step(), 'gan': gan_step()}
+        control = {'acoustic': same(acoustic_step(), ref['acoustic']),
+                   'gan': same(gan_step(), ref['gan'])}
+        group(True)
+        backend = dist.get_backend()
+        dp = {'acoustic': same(acoustic_step(), ref['acoustic']),
+              'gan': same(gan_step(), ref['gan'])}
+        group(False)
+    ms = {}
+    for turn, on in enumerate((False, True, True, False)):
+        if on:
+            group(True)
+        ms[turn] = (on, timings())
+        if on:
+            group(False)
+    log(f'  (i) {backend} group of world size 1: hoisted acoustic step '
+        f'(B={cfg.acoustic.batch_size}, {batch["mel_targets"].shape[1] // 5} decode steps) and '
+        f'GAN step (B={cfg.vocoder.batch_size}) bit for bit as without a group: {dp} (control, '
+        f'the step without a group run twice: {control}); ops without a deterministic '
+        f'implementation: {sorted(notes) or "none"}')
+    for name, i in (('acoustic', 0), ('GAN', 1)):
+        without = [v[1][i] for v in ms.values() if not v[0]]
+        with_ = [v[1][i] for v in ms.values() if v[0]]
+        log(f'  (i) {name} step ms, mean of {DP_TIMED} after {DP_WARM} (host clock), in turns '
+            f'without/with/with/without the group: '
+            + ' / '.join(f'{v[1][i]:.2f}' for v in ms.values())
+            + f'; the all-reduce at world size 1 costs {np.mean(with_) - np.mean(without):+.2f} '
+            f'ms per step [{card}]')
+    if not (all(control.values()) and all(dp.values())):
+        raise AssertionError(f'world size 1 is not the step without a group: {dp}, '
+                             f'control {control}')
+
+
+def gloo_two_ranks(card: str, device):
+    """Phase 9 (ii): two spawned ranks in a gloo group on cuda:0 against
+    this process's step on the whole batch."""
+    import multiprocessing
+    import os
+    import tempfile
+    from transtacos_retunegan_tpu_torch.parallel import free_port
+    t0 = time.perf_counter()
+    ref = dp_steps(device)
+    ref_s = time.perf_counter() - t0
+    ctx = multiprocessing.get_context('spawn')
+    with tempfile.TemporaryDirectory() as tmp:
+        port = free_port()
+        where = 'cuda:0' if device.type == 'cuda' else str(device)
+        procs = [ctx.Process(target=dp_rank, args=(r, port, tmp, where)) for r in range(2)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(timeout=max(1.0, DP_TIMEOUT_S - (time.perf_counter() - t0)))
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+                    p.join()
+        codes = [p.exitcode for p in procs]
+        if codes != [0, 0]:
+            raise AssertionError(f'a rank of the gloo group failed: exit codes {codes}')
+        ranks = [torch.load(os.path.join(tmp, f'rank{r}.pt')) for r in range(2)]
+    wall = time.perf_counter() - t0
+    ok = ranks[0]['hash'] == ranks[1]['hash']
+    for name, tol in (('acoustic', DP_ACOUSTIC_TOL), ('gan', DP_GAN_TOL),
+                      ('acoustic64', DP_F64_TOL), ('gan64', DP_F64_TOL)):
+        wl, wg, within_tol = dp_errors(ranks[0][name], ref[name], tol)
+        ok = ok and within_tol
+        log(f'  (ii) gloo, 2 ranks on one card, half the batch each, {name} step against '
+            f'one process on the whole batch: worst loss {wl[0]} {wl[1]:.2e} relative, worst '
+            f'gradient leaf {wg[0]} {wg[1]:.2e} of its norm (tol {tol:.0e})')
+    for name in ('acoustic', 'gan'):
+        log(f'  (ii) {name} step ms (CUDA events, {DP_TIMED} after {DP_WARM}): one process, '
+            f'the whole batch: {quartiles(ref[name + "_ms"])}; rank 0 of 2 on one card, half '
+            f'each: {quartiles(ranks[0][name + "_ms"])} [{card}]')
+    log(f'  (ii) ranks bit for bit after {1 + DP_WARM + DP_TIMED} steps of each: '
+        f'{ranks[0]["hash"] == ranks[1]["hash"]}; one-process reference {ref_s:.1f} s, '
+        f'the two ranks {wall:.1f} s with their start')
+    if not ok:
+        raise AssertionError('the two-rank gloo steps disagree with one process')
+
+
+def dp_serving(fd, synth, card: str, device):
+    """Phase 9 (iii): two serving replicas on one card against one replica
+    at the same rows per replica; returns the launches of the counted run."""
+    from transtacos_retunegan_tpu_torch.serve.pipeline import Synthesizer
+    head, _ = plan_cohorts(fd, synth)
+    use_stop(synth, head)
+    dp2 = Synthesizer(devices=[device, device])
+    for rep in dp2.replicas:
+        use_stop(rep, head)
+    texts = list(BATCH_TEXTS)
+    half = len(texts) // 2
+    gens = lambda s: [s.content_generator(t.encode()) for t in texts]     # noqa: E731
+    for _ in range(2):                                   # warm-up, each replica's thread
+        dp2.tts_batch(texts, generators=gens(dp2))
+        synth.tts_batch(texts, generators=gens(synth))
+    torch.cuda.synchronize()
+    ref_specs = (synth.synthesize_spec_batch(texts[:half], rows=half)
+                 + synth.synthesize_spec_batch(texts[half:], rows=half))
+    g1 = gens(synth)
+    ref_wavs = (synth.vocode_batch(ref_specs[:half], g1[:half], rows=half)
+                + synth.vocode_batch(ref_specs[half:], g1[half:], rows=half))
+    result = {}
+
+    def counted():
+        for k in fd.LAUNCHES:
+            fd.LAUNCHES[k] = 0
+        specs = dp2.synthesize_spec_batch(texts, rows=len(texts))
+        wavs = dp2.vocode_batch(specs, gens(dp2), rows=len(texts))
+        result.update(launches=dict(fd.LAUNCHES), specs=specs, wavs=wavs)
+
+    worker = threading.Thread(target=counted, daemon=True)
+    worker.start()
+    worker.join(DP_TIMEOUT_S)
+    if worker.is_alive() or 'wavs' not in result:
+        raise AssertionError('the two replicas on one card did not finish')
+    launches = result['launches']
+    same = (all(np.array_equal(a, b) for a, b in zip(result['specs'], ref_specs))
+            and all(np.array_equal(a, b) for a, b in zip(result['wavs'], ref_wavs)))
+    ms = {}
+    for name, s in (('one replica', synth), ('two replicas', dp2), ('one replica ', synth),
+                    ('two replicas ', dp2)):
+        t = []
+        for _ in range(BATCH_REPS):
+            t0 = time.perf_counter()
+            s.tts_batch(texts, generators=gens(s))
+            t.append(1e3 * (time.perf_counter() - t0))
+        ms[name] = float(np.median(t))
+    log(f'  (iii) Synthesizer(devices=[cuda:0, cuda:0]), a cohort of {len(texts)} texts, '
+        f'{half} rows per replica: launches {launches}, specs and wavs bit for bit as one '
+        f'replica at {half} rows: {same}')
+    log('  (iii) tts_batch of the cohort, median ms of '
+        f'{BATCH_REPS}, in turns: ' + ', '.join(f'{k.strip()} {v:.2f}' for k, v in ms.items())
+        + f' [{card}]')
+    if launches != {'decode_step': 0, 'decode_full': 2} or not same:
+        raise AssertionError(f'--dp 2 on one card: launches {launches}, bit for bit {same}')
+    return launches
+
+
+def data_parallel(fd, synth, card: str, device):
+    """Phase 9; returns the launches of the serving replicas' counted run
+    (the trainers launch none)."""
+    for fn, args in ((nccl_world_one, (card, device)), (gloo_two_ranks, (card, device))):
+        t0 = time.perf_counter()
+        fn(*args)
+        log(f'  ({fn.__name__}: {time.perf_counter() - t0:.1f} s)')
+    t0 = time.perf_counter()
+    launches = dp_serving(fd, synth, card, device)
+    log(f'  (dp_serving: {time.perf_counter() - t0:.1f} s)')
     return launches
 
 
@@ -1871,6 +2274,14 @@ def main() -> int:
     log(f'  phase 8 took {time.perf_counter() - t0:.1f} s; training launches none of the '
         f'kernels, its served request {served}; LAUNCHES over the paths of phases 4, 5 and '
         f'8: {launches}')
+
+    log('== phase 9: data parallelism (process groups on the card, serving replicas)')
+    t0 = time.perf_counter()
+    replicas = data_parallel(fd, synth, card, device)
+    launches = {k: launches[k] + replicas.get(k, 0) for k in launches}
+    log(f'  phase 9 took {time.perf_counter() - t0:.1f} s; the trainers launch none of the '
+        f'kernels, the replicas {replicas}; LAUNCHES over the paths of phases 4, 5, 8 and 9: '
+        f'{launches}')
 
     sources = {'decode_step': 'fused_decoder.cu', 'decode_full': 'fused_decoder.cu',
                'lsa_step': 'lsa_step.cu'}

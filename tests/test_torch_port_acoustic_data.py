@@ -257,9 +257,16 @@ def test_cli_exits_1_when_the_loss_explodes(corpus, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize('flag,pointer', [
-    (['--num_devices', '2'], 'queue 1.7'), (['--model_parallel', '2'], 'queue 1.7'),
-    (['--coordinator', 'localhost:1234'], 'queue 1.7'), (['--device_data'], 'queue 1.8')])
+    pytest.param(['--num_devices', '2', '--device', 'cuda'], 'only 0 CUDA devices',
+                 id='flag0-queue 1.7'),
+    pytest.param(['--model_parallel', '2'], 'queue 1.7b', id='flag1-queue 1.7'),
+    pytest.param(['--coordinator', 'localhost:1234'], '--num_processes',
+                 id='flag2-queue 1.7'),
+    pytest.param(['--device_data'], 'queue 1.8', id='flag3-queue 1.8')])
 def test_cli_refuses_what_is_not_ported(corpus, tmp_path, flag, pointer):
+    """Tensor parallelism and the device-resident corpus are not ported;
+    data parallelism is, but not over more cards than the machine has
+    (none here), nor with a coordinator and no rank."""
     with pytest.raises(SystemExit, match=pointer):
         ta.train(_args(corpus, tmp_path / 'run', tmp_path, *flag))
     assert not (tmp_path / 'run').exists()

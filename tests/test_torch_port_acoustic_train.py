@@ -386,7 +386,7 @@ def test_fast_cell_tree_serves_like_jax(monkeypatch):
     fused['decoder_cell']['out_projection']['bias'] = jnp.asarray(bias)
     _, fcfg = acoustic_cfg_pair(fast_cell=True)
     port = Synthesizer(fcfg, acoustic_params=np_tree(fused),
-                       gen_params=np_tree(jsynth.gen_params), device='cpu')
+                       gen_params=np_tree(jsynth.gen_params), devices=['cpu'])
     frames = jsynth.cfg.acoustic.max_iters * r
     key = jax.random.fold_in(jax.random.PRNGKey(114514), 0)
     monkeypatch.setattr(jsynth, '_next_key', lambda: key)

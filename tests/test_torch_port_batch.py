@@ -74,7 +74,7 @@ def pair():
     stop = jsynth.acoustic_params['decoder_cell']['stop_projection']
     saved = dict(stop)
     port = Synthesizer(PCFG, acoustic_params=np_tree(jsynth.acoustic_params),
-                       gen_params=np_tree(jsynth.gen_params), device='cpu')
+                       gen_params=np_tree(jsynth.gen_params), devices=['cpu'])
     _set_stop(jsynth, port, -20.0, STOP_GAIN)
     enc = port._encode_batch(TEXTS)
     out = PF.to_outputs(port.decoder, *PF.decode_full_plain(
@@ -269,7 +269,7 @@ def test_coalescer_poisoned_request_does_not_fail_its_cohort():
 
 @pytest.fixture(scope='module')
 def synth():
-    return Synthesizer(PCFG, device='cpu')
+    return Synthesizer(PCFG, devices=['cpu'])
 
 
 def test_frontend_vocode_concurrent_equals_serial(synth):
@@ -435,4 +435,4 @@ def test_cli_starts_a_warmed_batching_server(tmp_path, monkeypatch):
         server.shutdown()
         server.server_close()
     with pytest.raises(SystemExit, match='dp'):
-        app.start(app.parse_args(['--dp', '2', '--device', 'cpu']))
+        app.start(app.parse_args(['--dp', '2']))     # more replicas than cards

@@ -303,7 +303,7 @@ def test_spec_batch_on_the_card_matches_the_cpu(cuda):
     texts = ['ni3 hao3 shi4 jie4', 'da4 jia1 hao3', 'zhong1 guo2', 'a1']
     specs = []
     for device in (cuda, 'cpu'):
-        synth = Synthesizer(_small_cfg(), device=device)
+        synth = Synthesizer(_small_cfg(), devices=[device])
         synth.acoustic.decoder_cell.stop_projection.bias.fill_(-20.0)   # no stop
         synth.decoder = fd.fold_params(synth.acoustic.decoder_cell, torch.float32)
         before = fd.LAUNCHES['decode_full']
@@ -513,3 +513,61 @@ def test_fast_cell_decodes_like_the_stock_cell_through_the_kernels(cuda):
     _close(got[1], got[0], torch.float32)
     _close(got[1], fd.to_outputs(fps[1], *fd.decode_full_plain(fps[1], *mem, STEPS)),
            torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# data parallelism
+# ---------------------------------------------------------------------------
+
+def test_nccl_world_size_one_is_the_step_without_a_group(cuda):
+    """In an NCCL group of world size 1 (the all-reduce of the gradients,
+    the loss averaging and the draws of the global shape all on their
+    path, through the states' shard), one hoisted acoustic step and one GAN
+    step are bit for bit the steps without a group: losses, parameters and
+    gradients.  cuDNN's and PyTorch's deterministic algorithms are on for
+    the comparison (the GAN step's STFT frames overlap, and their gradient
+    is an ``index_add_`` of atomics otherwise: two runs differed without
+    them); the step without a group runs twice first, as the control."""
+    import torch.distributed as dist
+    from transtacos_retunegan_tpu_torch.models.layers import Draws, keep_mask
+    from transtacos_retunegan_tpu_torch.parallel import (current_shard, free_port,
+                                                        maybe_initialize_distributed)
+    from transtacos_retunegan_tpu_torch.tools.acoustic_step_profile import seeded_batch
+    from transtacos_retunegan_tpu_torch.train import acoustic_step as A
+    from transtacos_retunegan_tpu_torch.train import vocoder_step as V
+    from transtacos_retunegan_tpu_torch.utils.determinism import deterministic
+    acfg, vcfg = _acoustic_cfg(), _vocoder_cfg()
+    batch = seeded_batch(acfg, 4, 60, 16, seed=2, device=cuda)
+    s = batch['mel_targets'].shape[1] // acfg.acoustic.outputs_per_step
+    keep = [keep_mask((s, 4, w), 0.5, torch.Generator().manual_seed(1), 'cpu').to(cuda)
+            for w in acfg.acoustic.prenet_depths]
+    vb = {k: torch.from_numpy(v).to(cuda) for k, v in _vocoder_batch(vcfg, 1).items()
+          if k in ('mel', 'tmpl', 'wav')}
+
+    def snap(modules, metrics):
+        return ([(p.detach().clone(), p.grad.clone()) for m in modules for p in m.parameters()],
+                {k: float(v) for k, v in metrics.items()})
+
+    def steps():
+        st = A.init_state(acfg, 7, cuda, current_shard())
+        _, losses = A.train_step_hoisted(acfg, st, batch, Draws(prenet_keep=keep))
+        gs = V.init_gan_state(vcfg, 3, cuda, current_shard())
+        noise = torch.Generator(device=cuda).manual_seed(5)
+        _, m = V.gan_train_step(vcfg, gs, vb, noise, 4)
+        return snap([st.model], losses), snap([gs.generator, gs.discriminators], m)
+
+    def same(a, b):
+        return all(x[1] == y[1] and all(torch.equal(p, q) and torch.equal(g, h)
+                                        for (p, g), (q, h) in zip(x[0], y[0]))
+                   for x, y in zip(a, b))
+
+    with deterministic():
+        ref = steps()
+        assert same(steps(), ref), 'the steps without a group are not deterministic'
+        maybe_initialize_distributed(f'127.0.0.1:{free_port()}', 1, 0, device=cuda)
+        try:
+            assert dist.get_backend() == 'nccl' and current_shard().count == 1
+            got = steps()
+        finally:
+            dist.destroy_process_group()
+    assert same(got, ref)

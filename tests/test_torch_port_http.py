@@ -19,7 +19,7 @@ _, PCFG = cfg_pair()
 
 @pytest.fixture(scope='module')
 def synth():
-    return Synthesizer(PCFG, device='cpu')
+    return Synthesizer(PCFG, devices=['cpu'])
 
 
 @pytest.fixture(scope='module')

@@ -1,6 +1,7 @@
 """The port never imports JAX or the JAX package: every ``.py`` of
-``transtacos_retunegan_tpu_torch`` and ``chip_smoke.py`` is checked by an
-AST walk over its import statements."""
+``transtacos_retunegan_tpu_torch`` (``parallel/`` and ``tools/`` included)
+and ``chip_smoke.py`` is checked by an AST walk over its import
+statements."""
 
 import ast
 import pathlib
@@ -37,3 +38,9 @@ def test_checker_sees_the_jax_package():
     assert _forbidden('transtacos_retunegan_tpu.ops')
     assert _forbidden('jax.numpy') and _forbidden('flax')
     assert not _forbidden('transtacos_retunegan_tpu_torch.ops')
+
+
+def test_walk_covers_the_parallel_package():
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    for f in ('parallel/__init__.py', 'parallel/mesh.py', 'tools/multihost_smoke.py'):
+        assert f'transtacos_retunegan_tpu_torch/{f}' in names, f

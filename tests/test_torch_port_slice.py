@@ -37,7 +37,7 @@ def pair():
     stop = jsynth.acoustic_params['decoder_cell']['stop_projection']
     stop['bias'] = jnp.full_like(stop['bias'], -20.0)
     port = Synthesizer(PCFG, acoustic_params=np_tree(jsynth.acoustic_params),
-                       gen_params=np_tree(jsynth.gen_params), device='cpu')
+                       gen_params=np_tree(jsynth.gen_params), devices=['cpu'])
     return jsynth, port
 
 

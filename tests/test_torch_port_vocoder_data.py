@@ -10,7 +10,8 @@ the other cached; the JAX side takes its numpy Griffin-Lim path, the only
 one the port has.  ``VocoderLoader`` batches equal the JAX loader's, and a
 worker's error surfaces in the consumer.  ``train_vocoder`` runs 2 steps
 at a tiny configuration, checkpoints, resumes, exits 75 over its host
-memory limit, refuses more than one device and defaults to the card.
+memory limit, refuses more devices than the machine has and defaults to
+the card.
 """
 
 import dataclasses
@@ -259,10 +260,15 @@ def test_cli_exits_1_when_the_loss_explodes(corpus, tmp_path, monkeypatch):
     assert 'loss exploded' in (tmp_path / 'run' / 'rtg.log').read_text()
 
 
-@pytest.mark.parametrize('flag', [['--num_devices', '2'], ['--model_parallel', '2'],
-                                  ['--coordinator', 'localhost:1234']])
-def test_cli_refuses_more_than_one_device(corpus, tmp_path, flag):
-    with pytest.raises(SystemExit, match='queue 1.7'):
+@pytest.mark.parametrize('flag,pointer', [
+    pytest.param(['--num_devices', '2', '--device', 'cuda'], 'only 0 CUDA devices',
+                 id='flag0'),
+    pytest.param(['--model_parallel', '2'], 'queue 1.7b', id='flag1'),
+    pytest.param(['--coordinator', 'localhost:1234'], '--num_processes', id='flag2')])
+def test_cli_refuses_more_than_one_device(corpus, tmp_path, flag, pointer):
+    """More cards than the machine has (none here), tensor parallelism (not
+    ported), a coordinator without a rank."""
+    with pytest.raises(SystemExit, match=pointer):
         train_vocoder.train(_args(corpus, tmp_path / 'run', _tiny_config(tmp_path), *flag))
     assert not (tmp_path / 'run').exists()
 

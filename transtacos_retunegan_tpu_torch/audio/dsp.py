@@ -52,7 +52,7 @@ def _on_device(device: torch.device, fn, *args) -> torch.Tensor:
 
 
 def _window(kind: str, win_length: int, n_fft: int, like: torch.Tensor):
-    return _on_device(like.device, _padded_window, kind, win_length, n_fft)
+    return _on_device(like.device, _padded_window, kind, win_length, n_fft).to(like.dtype)
 
 
 @functools.lru_cache(maxsize=32)
@@ -281,5 +281,5 @@ def stft_mag_mel_phase(y: torch.Tensor, cfg: AudioConfig, n_fft: int,
     im = _exact_zero_imag(im, y.shape[-1], hop_length)
     re_eps = re + 1e-9
     s = torch.sqrt(re_eps * re_eps + im * im)
-    m = torch.einsum('mf,...ft->...mt', mel_basis(cfg, s.device, n_fft), s)
+    m = torch.einsum('mf,...ft->...mt', mel_basis(cfg, s.device, n_fft).to(s.dtype), s)
     return s, m, torch.atan2(im, re)

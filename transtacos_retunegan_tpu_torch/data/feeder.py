@@ -11,6 +11,12 @@ pad 1.0, lengths +1 then rounded up to r) and is then extended to the
 A background thread keeps a bounded queue of numpy batches; iterating the
 feeder yields them (``data/prefetch.py::device_batches`` copies them to
 the card).
+
+Under data parallelism every rank computes the same global batch plan
+(same seed, same order, lengths read from the .npy headers) and loads only
+its strided members of each global batch, padded to the global batch's
+shapes and loss lengths, so that the ranks' batches concatenated in rank
+order form one global batch.
 """
 
 from __future__ import annotations
@@ -20,12 +26,13 @@ import queue
 import random
 import threading
 import time as _time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from ..audio import features as F
 from ..config import Config
+from ..parallel import rank, world_size
 from ..text import frontend
 
 
@@ -43,6 +50,7 @@ class AcousticDataset:
             self.metadata = [ln.strip().split('|') for ln in fh if ln.strip()]
         self.cache: List[Optional[tuple]] = [None] * len(self.metadata)
         self._frame_len: List[Optional[int]] = [None] * len(self.metadata)
+        self._text_len: List[Optional[int]] = [None] * len(self.metadata)
 
     def __len__(self):
         return len(self.metadata)
@@ -60,6 +68,19 @@ class AcousticDataset:
                             mmap_mode='r')
                 self._frame_len[index] = int(m.shape[1])   # stored [M, T]
         return self._frame_len[index]
+
+    def text_len(self, index: int) -> int:
+        """Serialized text length without loading the features: every rank
+        pads to the global batch's longest text."""
+        if self._text_len[index] is None:
+            if self.cache[index] is not None:
+                self._text_len[index] = int(len(self.cache[index][0]))
+            else:
+                _, prds_str, text = self.metadata[index]
+                seq, _ = frontend.serialize_train(
+                    text, [int(d) for d in prds_str], self.cfg.acoustic.g2p)
+                self._text_len[index] = int(len(seq))
+        return self._text_len[index]
 
     def load(self, index: int) -> tuple:
         """(seq [T,2], prds [T], mel [T,M], mag [T,F-1], f0q [T], c0q [T], stop [T])
@@ -81,19 +102,24 @@ class AcousticDataset:
         return self.cache[index]
 
 
-def prepare_batch(examples: List[tuple], cfg: Config) -> Dict[str, np.ndarray]:
+def prepare_batch(examples: List[tuple], cfg: Config,
+                  pad_to: Optional[Tuple[int, int]] = None) -> Dict[str, np.ndarray]:
     """Pad a list of examples, in their order, into one batch (reference
-    ``data.py:172-226``)."""
+    ``data.py:172-226``).  ``pad_to``: the reference padded lengths
+    ``(n_ref, t_ref)`` of a larger global batch these examples belong to."""
     hp = cfg.acoustic
     r = hp.outputs_per_step
 
     text_lengths = np.asarray([len(e[0]) for e in examples], np.int32)
     spec_lengths = np.asarray([len(e[2]) for e in examples], np.int32)
 
-    # reference padded lengths: text to batch max; frames to batch max + 1,
-    # rounded up to a multiple of r
-    n_ref = int(text_lengths.max())
-    t_ref = _round_up(int(spec_lengths.max()) + 1, r)
+    if pad_to is not None:
+        n_ref, t_ref = pad_to
+    else:
+        # reference padded lengths: text to batch max; frames to batch
+        # max + 1, rounded up to a multiple of r
+        n_ref = int(text_lengths.max())
+        t_ref = _round_up(int(spec_lengths.max()) + 1, r)
     # static-shape buckets on top (loss masks exclude the extra padding)
     n_pad = _round_up(n_ref, hp.text_bucket)
     t_pad = _round_up(t_ref, hp.frame_bucket)
@@ -132,12 +158,20 @@ class DataFeeder(threading.Thread):
 
     def __init__(self, dataset: AcousticDataset, cfg: Config,
                  batches_per_group: Optional[int] = None, queue_size: int = 8,
-                 seed: int = 114514):
+                 seed: int = 114514, num_shards: Optional[int] = None,
+                 shard_index: Optional[int] = None):
+        """``num_shards``/``shard_index``: this process's share of every
+        global batch (its strided members); the process group's size and
+        rank by default."""
         super().__init__(daemon=True)
         self.dataset = dataset
         self.cfg = cfg
         self.bs = cfg.acoustic.batch_size
         self._order = list(range(len(dataset)))
+        self._pc = world_size() if num_shards is None else num_shards
+        self._pidx = rank() if shard_index is None else shard_index
+        if self.bs % self._pc:
+            raise ValueError(f'batch_size {self.bs} not divisible by {self._pc} shards')
         self.batches_per_group = batches_per_group or self.bs
         self.q: 'queue.Queue[Dict[str, np.ndarray]]' = queue.Queue(queue_size)
         self.rng = random.Random(seed)
@@ -163,10 +197,12 @@ class DataFeeder(threading.Thread):
             self._error = e
 
     def _run(self):
+        r = self.cfg.acoustic.outputs_per_step
         while not self._stop.is_set():
             n = self.bs
             group = [self._next_index() for _ in range(n * self.batches_per_group)]
-            # bucket by output frame count (reference ``data.py:90-95``)
+            # bucket by output frame count (reference ``data.py:90-95``);
+            # the plan uses lengths only, so it is the same on every rank
             group.sort(key=self.dataset.frame_len)
             batches = [group[i:i + n] for i in range(0, len(group), n)]
             self.rng.shuffle(batches)
@@ -176,8 +212,11 @@ class DataFeeder(threading.Thread):
                 if len(idxs) != n:
                     continue
                 self.rng.shuffle(idxs)     # within-batch order
-                examples = [self.dataset.load(i) for i in idxs]
-                self.q.put(prepare_batch(examples, self.cfg))
+                # the global batch's padded lengths (reference formulas)
+                n_ref = max(self.dataset.text_len(i) for i in idxs)
+                t_ref = _round_up(max(self.dataset.frame_len(i) for i in idxs) + 1, r)
+                examples = [self.dataset.load(i) for i in idxs[self._pidx::self._pc]]
+                self.q.put(prepare_batch(examples, self.cfg, pad_to=(n_ref, t_ref)))
 
     def get_batch(self, timeout: float = 300.0) -> Dict[str, np.ndarray]:
         deadline = _time.monotonic() + timeout

@@ -7,8 +7,9 @@ scratch mode analyses (augmented) wavs directly, finetune mode consumes
 the acoustic preprocessor's ``mag-*.npy`` features denormalized to natural
 scale, with the template cached on disk beside them.  Train-time access
 returns random ``segment_size`` crops.  ``VocoderLoader`` is a threaded
-shuffling batch loader; its shard count comes from its arguments (1 by
-default).
+shuffling batch loader; under data parallelism each rank takes a disjoint
+stride of the shared shuffled order and ``batch_size / world size``
+examples per batch.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import numpy as np
 from ..audio import features as F
 from ..audio import transforms as T
 from ..config import Config
+from ..parallel import rank, world_size
 
 
 class VocoderDataset:
@@ -190,7 +192,8 @@ class VocoderLoader:
                  shard_index: Optional[int] = None):
         """``num_shards``/``shard_index``: this process's share of the data
         (a disjoint stride of the shuffled order and ``batch_size /
-        num_shards`` examples per batch); one shard by default."""
+        num_shards`` examples per batch); the process group's size and rank
+        by default."""
         self.ds = dataset
         self.bs = batch_size
         self.shuffle = shuffle
@@ -198,8 +201,8 @@ class VocoderLoader:
         self.num_workers = max(1, num_workers)
         self.queue_size = queue_size
         self.rng = Random(seed)
-        self._pc = num_shards or 1
-        self._pidx = shard_index or 0
+        self._pc = world_size() if num_shards is None else num_shards
+        self._pidx = rank() if shard_index is None else shard_index
         if self._pc > 1:
             if self.bs % self._pc:
                 raise ValueError(f'batch_size {self.bs} not divisible by '

@@ -110,27 +110,27 @@ class Tacotron(nn.Module):
             embd = self.E_text[text[..., 0]]
         std = hp.hidden_gauss_std
         if train:
-            embd = gaussian_noise(embd, std, draws.noise)
+            embd = gaussian_noise(embd, std, draws.noise, draws.shard)
 
         if hp.encoder_type == 'sa':
             if hp.txt_use_posenc:
                 embd = torch.cat([embd, self._pe(b, n)], -1)
             f0_embd = c0_embd = None
             if train:
-                f0_embd = gaussian_noise(self.E_f0[f0_targets], std, draws.noise)
-                c0_embd = gaussian_noise(self.E_c0[c0_targets], std, draws.noise)
+                f0_embd = gaussian_noise(self.E_f0[f0_targets], std, draws.noise, draws.shard)
+                c0_embd = gaussian_noise(self.E_c0[c0_targets], std, draws.noise, draws.shard)
                 if hp.var_use_posenc:
                     pe_t = self._pe(b, f0_targets.shape[-1])
                     f0_embd = torch.cat([f0_embd, pe_t], -1)
                     c0_embd = torch.cat([c0_embd, pe_t], -1)
             enc, attns, fuse = self.encoder(embd, text_lengths, f0_embd, c0_embd,
-                                            spec_lengths, train, draws.dropout)
+                                            spec_lengths, train, draws.dropout, draws.shard)
         else:
-            enc = self.encoder(embd, text_lengths, train)
+            enc = self.encoder(embd, text_lengths, train, draws.shard)
             zero = embd.new_zeros(())
             attns, fuse = ([], []), ((zero, zero), (zero, zero))
         if train:
-            enc = gaussian_noise(enc, std, draws.noise)
+            enc = gaussian_noise(enc, std, draws.noise, draws.shard)
 
         attn = prepare_attention(enc, text_lengths, self.attn_memory(enc))
         out = {'prds_out': prds_out, 'prds_prob': prds_prob}

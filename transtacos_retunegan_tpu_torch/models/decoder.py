@@ -240,7 +240,8 @@ def prenet_keep(cell: CellBase, steps: int, batch: int, draws: Draws,
         return draws.prenet_keep
     if draws.dropout is None:
         return None
-    return [keep_mask((steps, batch, w), Prenet.RATE, draws.dropout, device)
+    return [keep_mask((steps, batch, w), Prenet.RATE, draws.dropout, device,
+                      batch_axis=1, shard=draws.shard)
             for w in cell.cfg.acoustic.prenet_depths]
 
 

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..config import Config
+from ..parallel import Shard
 from .decoder import AttentionParams, CellBase, teacher_inputs
 from .layers import Conv, Prenet, keep_mask
 
@@ -194,22 +195,24 @@ def _core(w, xp_t, hs, ctx, cum, keys, values, mask):
 def hoisted_force_decode(cell: CellBase, cfg: Config, mel_targets: torch.Tensor,
                          keys: torch.Tensor, values: torch.Tensor, mask: torch.Tensor,
                          keep: Optional[Sequence[torch.Tensor]] = None,
-                         generator: Optional[torch.Generator] = None):
+                         generator: Optional[torch.Generator] = None,
+                         shard: Optional[Shard] = None):
     """Teacher-forced training decode with the time-parallel work hoisted
     out of the step loop; the stock train decode's function whenever the
     decoder input is ground truth.  ``keep``: the prenet's dropout masks,
     [S, B, width] per layer, scaled (``layers.keep_mask``); else drawn from
-    ``generator``; else no dropout.  Returns mel [B, S*r, M], raw stop
-    logits [B, S*r] and alignments [B, N, S].  ``remat_decoder`` recomputes
-    each core step in the backward pass."""
+    ``generator`` under the data-parallel ``shard``; else no dropout.
+    Returns mel [B, S*r, M], raw stop logits [B, S*r] and alignments
+    [B, N, S].  ``remat_decoder`` recomputes each core step in the backward
+    pass."""
     hp = cfg.acoustic
     r, n_mel = hp.outputs_per_step, cfg.audio.n_mel
     w = cell_weights(cell)
     x_in = teacher_inputs(mel_targets, r)                   # [S, B, M]
     s, b = x_in.shape[0], x_in.shape[1]
     if keep is None and generator is not None:
-        keep = [keep_mask((s, b, lw.shape[1]), Prenet.RATE, generator, x_in.device)
-                for lw, _ in w['prenet']]
+        keep = [keep_mask((s, b, lw.shape[1]), Prenet.RATE, generator, x_in.device,
+                          batch_axis=1, shard=shard) for lw, _ in w['prenet']]
     act = x_in
     for i, (lw, lb) in enumerate(w['prenet']):
         act = F.relu(act @ lw + lb)         # gradient 0 at 0, as jax.nn.relu

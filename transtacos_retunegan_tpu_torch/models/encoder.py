@@ -18,6 +18,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..config import AcousticConfig
+from ..parallel import Shard
 from .decoder import GRUCell
 from .layers import (GFFW, ConvBN, ConvStack, DotAttn, Highway, attn_mask,
                      dropout, leaky_relu, sequence_mask)
@@ -50,15 +51,16 @@ class EncoderSA(nn.Module):
     def forward(self, x: torch.Tensor, x_len: torch.Tensor,
                 f0: Optional[torch.Tensor] = None, c0: Optional[torch.Tensor] = None,
                 y_len: Optional[torch.Tensor] = None, train: bool = False,
-                drop: Optional[torch.Generator] = None):
+                drop: Optional[torch.Generator] = None, shard: Optional[Shard] = None):
         """``drop``: the dropout stream (used under ``encoder_dropout`` in
-        training); ``f0``/``c0`` [B, T, var_in] and ``y_len`` are the
-        training inputs of the cross attentions."""
+        training), drawn under the data-parallel ``shard``; ``f0``/``c0``
+        [B, T, var_in] and ``y_len`` are the training inputs of the cross
+        attentions."""
         hp = self.hp
         m = self._modules
         drop = drop if (train and hp.encoder_dropout) else None
         if hp.txt_use_posenc:
-            x = dropout(self.prenet(x), ENCODER_DROPOUT, drop)
+            x = dropout(self.prenet(x), ENCODER_DROPOUT, drop, shard)
         slf_mask = attn_mask(x_len, x.shape[-2])
         slf_attns = []
         for i in range(hp.encoder_attn_layers):
@@ -66,7 +68,7 @@ class EncoderSA(nn.Module):
                      for h in range(hp.encoder_attn_nhead)]
             slf_attns.append([sc for _, sc in heads])
             sa = m[f'proj_sa_{i}'](torch.cat([r for r, _ in heads], -1))
-            sa = dropout(sa, ENCODER_DROPOUT, drop)
+            sa = dropout(sa, ENCODER_DROPOUT, drop, shard)
             x = x + m[f'gffw_sa_{i}'](x + sa)
         crx_attns = []
         zero = x.new_zeros(())
@@ -82,7 +84,7 @@ class EncoderSA(nn.Module):
                 f = self.proj_ca(torch.cat([f0_r, c0_r], -1))
             else:
                 f = self.proj_ca(torch.cat([f0_r_pred, c0_r_pred], -1))
-            f = dropout(f, ENCODER_DROPOUT, drop)
+            f = dropout(f, ENCODER_DROPOUT, drop, shard)
             x = x + self.gffw_ca(torch.cat([x, f], -1))
         return x, (slf_attns, crx_attns), ((f0_r, f0_r_pred), (c0_r, c0_r_pred))
 
@@ -115,12 +117,14 @@ class CBHG(nn.Module):
         self.GRUCell_0 = GRUCell(depth, depth // 2)
         self.GRUCell_1 = GRUCell(depth, depth // 2)
 
-    def forward(self, x: torch.Tensor, x_len: torch.Tensor, train: bool) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, x_len: torch.Tensor, train: bool,
+                shard: Optional[Shard] = None) -> torch.Tensor:
+        """``shard``: batch norm over the data-parallel global batch."""
         hp, m = self.hp, self._modules
-        conv = torch.cat([m[f'conv1d_{k}'](x, train)
+        conv = torch.cat([m[f'conv1d_{k}'](x, train, shard)
                           for k in range(1, hp.encoder_conv_K + 1)], -1)
         pooled = torch.maximum(conv, torch.cat([conv[:, 1:], conv[:, -1:]], 1))
-        proj = self.proj_2(self.proj_1(pooled, train), train)
+        proj = self.proj_2(self.proj_1(pooled, train, shard), train, shard)
         highway = x + proj
         for i in range(hp.highway_layers):
             highway = m[f'highway_{i + 1}'](highway)

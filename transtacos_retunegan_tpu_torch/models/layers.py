@@ -9,7 +9,10 @@ onto a torch state-dict key by joining with ``.`` (see ``weights.py``).
 Training draws its random numbers from the ``torch.Generator``s of a
 ``Draws`` (the JAX package's 'noise', 'dropout' and 'tf' rng streams); a
 stream left at None is off, which makes the Gaussian noises and the
-dropouts identities.
+dropouts identities.  A ``Draws`` with a data-parallel ``shard`` (set by
+the train steps) makes each draw at the global batch's shape and keeps this
+rank's rows (``parallel.shard_draw``), and batch norm given that shard takes
+the global batch's statistics; without one everything is local.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..parallel import Shard, all_reduce_stats, shard_draw
 
 
 def sinusoid_table(n_position: int, d_hid: int) -> np.ndarray:
@@ -57,38 +62,44 @@ class Draws:
     for a stream that is off.  ``coins`` [S] replaces the 'random'
     teacher-forcing coins of the ``tf`` stream, and ``prenet_keep`` (one
     [S, B, width] mask per prenet layer, scaled as ``keep_mask``'s) the
-    decoder prenet's dropout masks of the ``dropout`` stream."""
+    decoder prenet's dropout masks of the ``dropout`` stream.  ``shard``:
+    this rank's share of a data-parallel step (the train steps set it from
+    their state), under which draws are made at the global batch's shape
+    and batch norm takes the global statistics; None is one process."""
     noise: Optional[torch.Generator] = None
     dropout: Optional[torch.Generator] = None
     tf: Optional[torch.Generator] = None
     coins: Optional[torch.Tensor] = None
     prenet_keep: Optional[List[torch.Tensor]] = None
+    shard: Optional[Shard] = None
 
 
-def gaussian_noise(x: torch.Tensor, std: float,
-                   gen: Optional[torch.Generator]) -> torch.Tensor:
+def gaussian_noise(x: torch.Tensor, std: float, gen: Optional[torch.Generator],
+                   shard: Optional[Shard] = None) -> torch.Tensor:
     """Additive N(0, std) regularizer (the JAX ``GaussianNoise``); the
     identity when ``gen`` is None or ``std`` is 0."""
     if gen is None or not std:
         return x
-    return x + std * torch.randn(x.shape, generator=gen, device=x.device,
-                                 dtype=x.dtype)
+    return x + std * shard_draw(lambda s: torch.randn(s, generator=gen, device=x.device,
+                                                      dtype=x.dtype), x.shape, shard)
 
 
-def keep_mask(shape, rate: float, gen: torch.Generator,
-              device) -> torch.Tensor:
-    """Dropout keep mask, scaled: 1/(1-rate) where kept, 0 elsewhere."""
-    keep = torch.rand(shape, generator=gen, device=device) < 1.0 - rate
+def keep_mask(shape, rate: float, gen: torch.Generator, device, batch_axis: int = 0,
+              shard: Optional[Shard] = None) -> torch.Tensor:
+    """Dropout keep mask, scaled: 1/(1-rate) where kept, 0 elsewhere;
+    ``shape[batch_axis]`` is the batch."""
+    keep = shard_draw(lambda s: torch.rand(s, generator=gen, device=device),
+                      shape, shard, batch_axis) < 1.0 - rate
     return keep.float() / (1.0 - rate)
 
 
-def dropout(x: torch.Tensor, rate: float,
-            gen: Optional[torch.Generator]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, gen: Optional[torch.Generator],
+            shard: Optional[Shard] = None) -> torch.Tensor:
     """flax ``nn.Dropout(rate, deterministic=False)``; the identity when
     ``gen`` is None."""
     if gen is None:
         return x
-    return x * keep_mask(x.shape, rate, gen, x.device)
+    return x * keep_mask(x.shape, rate, gen, x.device, shard=shard)
 
 
 def leaky_relu(x: torch.Tensor, slope: float = 0.01) -> torch.Tensor:
@@ -225,7 +236,10 @@ class BatchNorm(nn.Module):
     but the last, the padded frames included; the variance is the biased
     one, E[x^2] - E[x]^2 clipped at 0; the running statistics (buffers
     ``mean``/``var``, flax's 'batch_stats') move with momentum 0.99 (torch's
-    0.01) in training and normalise in evaluation; epsilon 1e-5."""
+    0.01) in training and normalise in evaluation; epsilon 1e-5.  Given a
+    data-parallel ``shard``, training takes the statistics of the global
+    batch (sums of x, x^2 and the count over the ranks, whose backward sums
+    too), so the running statistics move alike on every rank."""
 
     MOMENTUM, EPS = 0.99, 1e-5
 
@@ -236,11 +250,16 @@ class BatchNorm(nn.Module):
         self.register_buffer('mean', torch.zeros(features))
         self.register_buffer('var', torch.ones(features))
 
-    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool,
+                shard: Optional[Shard] = None) -> torch.Tensor:
         if train:
             dims = tuple(range(x.dim() - 1))
-            mean = x.mean(dims)
-            var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+            count = x.new_full((1,), x[..., 0].numel())
+            sums = all_reduce_stats(torch.cat([x.sum(dims), (x * x).sum(dims), count]),
+                                    shard)
+            c = x.shape[-1]
+            mean = sums[:c] / sums[-1]
+            var = torch.clamp(sums[c:2 * c] / sums[-1] - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.MOMENTUM
                 self.mean.mul_(m).add_((1.0 - m) * mean.detach())
@@ -261,8 +280,9 @@ class ConvBN(nn.Module):
         self.Conv_0 = Conv(cin, filters, kernel)
         self.BatchNorm_0 = BatchNorm(filters)
 
-    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
-        return self.activation(self.BatchNorm_0(self.Conv_0(x), train))
+    def forward(self, x: torch.Tensor, train: bool,
+                shard: Optional[Shard] = None) -> torch.Tensor:
+        return self.activation(self.BatchNorm_0(self.Conv_0(x), train, shard))
 
 
 def cosine_similarity_matrix(e: torch.Tensor) -> torch.Tensor:

@@ -37,7 +37,8 @@ def compute_dtype(name: str, device: torch.device):
 
 
 def float32(tree):
-    """Every tensor of nested lists and tuples cast to float32."""
+    """Every 16-bit tensor of nested lists and tuples cast to float32 (the
+    autocast outputs; wider ones pass through)."""
     if isinstance(tree, (list, tuple)):
         return type(tree)(float32(x) for x in tree)
-    return tree.float()
+    return tree.float() if tree.dtype in (torch.bfloat16, torch.float16) else tree

@@ -11,12 +11,14 @@ block-diagonal dense lowering is a TPU workaround with the same result).
 Training noise (``LearnedGaussianNoise``) comes from an explicit source: a
 ``torch.Generator`` on the tensor's device, or an iterator of tensors the
 caller drew (``noise_source`` turns a list into one).  ``None`` is the
-inference forward.
+inference forward.  A callable ``draw(shape, device)`` is a third source:
+the GAN step's data-parallel draw of the global batch's shape, of which
+this rank keeps its rows.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, Sequence, Tuple, Union
+from typing import Callable, Iterator, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -24,7 +26,8 @@ import torch.nn.functional as F
 
 LRELU_SLOPE = 0.15
 
-Noise = Union[None, torch.Generator, Iterator[torch.Tensor]]
+Noise = Union[None, torch.Generator, Iterator[torch.Tensor],
+              Callable[[Tuple[int, ...], torch.device], torch.Tensor]]
 
 
 def lrelu(x: torch.Tensor, slope: float = LRELU_SLOPE) -> torch.Tensor:
@@ -33,8 +36,8 @@ def lrelu(x: torch.Tensor, slope: float = LRELU_SLOPE) -> torch.Tensor:
 
 def noise_source(noise) -> Noise:
     """A list or tuple of noise tensors becomes an iterator consumed in the
-    order of the noise calls; a ``torch.Generator``, an iterator or None
-    passes through."""
+    order of the noise calls; a ``torch.Generator``, an iterator, a draw
+    callable or None passes through."""
     return iter(noise) if isinstance(noise, (list, tuple)) else noise
 
 
@@ -114,6 +117,8 @@ class LearnedGaussianNoise(nn.Module):
         if noise is not None:
             if isinstance(noise, torch.Generator):
                 n = torch.rand(x.shape, generator=noise, device=x.device)
+            elif callable(noise):
+                n = noise(tuple(x.shape), x.device)
             else:
                 n = next(noise)
             x = x + n.to(x.dtype) * self.w

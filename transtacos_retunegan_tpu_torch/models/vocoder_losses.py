@@ -8,12 +8,13 @@ discriminator's inputs are ``[B, 2, F, T]`` (log-magnitude, phase/pi).
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from ..audio import dsp
 from ..config import Config
+from ..parallel import Shard, global_mean
 
 PI = 3.14159265358979
 
@@ -78,13 +79,14 @@ def dynamic_loss(y: torch.Tensor, y_g: torch.Tensor, cfg: Config) -> torch.Tenso
     return torch.mean(torch.abs(dyn_r - dyn_g))
 
 
-def strip_mirror_loss(y: torch.Tensor) -> torch.Tensor:
-    """-log of the de-meaned even/odd sample difference (clipped at 1)."""
+def strip_mirror_loss(y: torch.Tensor, shard: Optional[Shard] = None) -> torch.Tensor:
+    """-log of the de-meaned even/odd sample difference (clipped at 1); the
+    means are the global batch's under a data-parallel ``shard``."""
     if y.shape[-1] % 2:
         y = y[..., :-1]
     even, odd = y[..., ::2], y[..., 1::2]
-    even = even - even.mean()
-    odd = odd - odd.mean()
+    even = even - global_mean(even, shard)
+    odd = odd - global_mean(odd, shard)
     return torch.mean(-torch.log(torch.clamp(torch.abs(even - odd) + 1e-9, max=1.0)))
 
 

@@ -32,12 +32,19 @@ its kernel on CUDA tensors; there is no fallback from one to the other.  A
 launch error, a grid-barrier timeout or a layout mismatch raises.
 ``LAUNCHES`` counts kernel launches and ``LAST_GRID`` holds the number of
 blocks of each kernel's last launch.
+
+A persistent grid takes every SM of its card, so launches on one card are
+serialized by a per-device lock (taken with a timeout: a launch that cannot
+get the card raises); serving replicas on different cards launch in
+parallel.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import threading
 from dataclasses import dataclass
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -58,6 +65,30 @@ LAST_GRID: Dict[str, Optional[int]] = {'decode_step': None, 'decode_full': None}
 # this to 0 to pin that path).
 SMEM_BUDGET_BYTES = 227 * 1024
 THREADS = 512
+LOCK_TIMEOUT_S = 60.0
+_DEVICE_LOCKS: Dict[int, threading.Lock] = {}
+_LOCKS_GUARD = threading.Lock()
+
+
+@contextlib.contextmanager
+def _on_card(device: torch.device):
+    """The current device set to ``device`` (the ctypes launches use it) and
+    its launch lock held; counts the launch under the guard."""
+    with _LOCKS_GUARD:
+        lock = _DEVICE_LOCKS.setdefault(device.index, threading.Lock())
+    if not lock.acquire(timeout=LOCK_TIMEOUT_S):
+        raise RuntimeError(f'the decode kernels of {device} stayed busy for '
+                           f'{LOCK_TIMEOUT_S} s')
+    try:
+        with torch.cuda.device(device):
+            yield
+    finally:
+        lock.release()
+
+
+def _count(name: str) -> None:
+    with _LOCKS_GUARD:
+        LAUNCHES[name] += 1
 MAX_PRENET = MAX_GRU = 4
 RB = 4                      # rows per GEMV work item (RB in the CUDA source)
 SYNC_FLOATS = 4             # barrier counter and error word ahead of the scratch
@@ -480,10 +511,10 @@ def decode_step(fp: FoldedParams, prev, ctx, hs, cum, keys, values, mask,
         return decode_step_plain(fp, prev, ctx, hs, cum, keys, values, mask,
                                  finished)
     _check(fp, keys, values, mask, prev, ctx, hs, cum, finished)
-    with torch.cuda.device(keys.device):
+    with _on_card(keys.device):
         out = _launch_step(_lib(), fp, prev, ctx, hs, cum,
                            keys, values, mask, finished)
-    LAUNCHES['decode_step'] += 1
+    _count('decode_step')
     return out
 
 
@@ -494,10 +525,10 @@ def decode_full(fp: FoldedParams, keys, values, mask, steps: int,
     if device_kind(keys) == 'cpu':
         return decode_full_plain(fp, keys, values, mask, steps, early_exit)
     _check(fp, keys, values, mask)
-    with torch.cuda.device(keys.device):
+    with _on_card(keys.device):
         out = _launch_full(_lib(), fp, keys, values, mask,
                            steps, early_exit)
-    LAUNCHES['decode_full'] += 1
+    _count('decode_full')
     return out
 
 

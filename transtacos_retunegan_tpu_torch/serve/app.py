@@ -8,7 +8,8 @@ webui, 5104 vocoder, 5105 acoustic) or one role on its reference port (or
 ``--port``).  Weights are flax parameter trees saved as ``.npz``
 (``weights.save_npz``); without them the weights are drawn from the seed.
 Micro-batching is on unless ``--batch_window_ms 0``.  Runs on the card
-(``--device cuda``) unless told otherwise.
+(``--device cuda``) unless told otherwise; ``--dp N`` serves the batched
+surfaces from N replicas, one per card (``cuda:0`` .. ``cuda:N-1``).
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ from __future__ import annotations
 import argparse
 import time
 from typing import List, Optional, Sequence
+
+import torch
 
 from ..config import Config
 from .httpd import serve, serve_all
@@ -37,7 +40,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument('--kanji_table', default=None)
     p.add_argument('--max_iters', type=int, default=None)
     p.add_argument('--dp', type=int, default=1,
-                   help='data-parallel serving over N cards (only 1 is ported)')
+                   help='data-parallel serving: the batched surfaces split their '
+                        'rows over N replicas, one per card')
     p.add_argument('--max_batch', type=int, default=8,
                    help='dynamic micro-batching: largest coalesced batch')
     p.add_argument('--batch_window_ms', type=float, default=6.0,
@@ -49,17 +53,23 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 def start(args: argparse.Namespace) -> List:
     """Build the synthesizer, start the servers and warm up every thread
     that will touch the card; returns the servers."""
-    if args.dp > 1:
-        raise SystemExit(f'--dp {args.dp}: multi-GPU serving is not ported yet')
+    devices = [args.device] * args.dp
+    if torch.device(args.device).type == 'cuda' and args.dp > 1:
+        have = torch.cuda.device_count()
+        if have < args.dp:
+            raise SystemExit(f'--dp {args.dp} but only {have} CUDA devices')
+        devices = [f'cuda:{i}' for i in range(args.dp)]
     cfg = Config.load(args.config) if args.config else Config()
     synth = Synthesizer(cfg, acoustic_params=args.acoustic_npz,
                         gen_params=args.vocoder_npz, kanji_table=args.kanji_table,
-                        max_iters=args.max_iters, device=args.device)
+                        max_iters=args.max_iters, devices=devices)
     batching = args.batch_window_ms > 0
     kw = dict(batching=batching, max_batch=args.max_batch,
               batch_window_s=args.batch_window_ms / 1000.0)
     t0 = time.time()
     synth.tts(WARM_TEXT)
+    if args.dp > 1:
+        synth.tts_batch([WARM_TEXT])        # each replica's thread
     if args.mode == 'all':
         servers = serve_all(synth, args.host, **kw)
     else:

@@ -212,7 +212,7 @@ def serve_all(synth: Optional[Synthesizer] = None, host: str = '0.0.0.0',
     port, ``vocoder`` and ``acoustic`` on theirs.  With ``batching`` (the
     default) the three share one frontend, so concurrent requests coalesce
     whichever port they reach."""
-    synth = synth or Synthesizer(device=device)
+    synth = synth or Synthesizer(devices=[device])
     frontend = (BatchingFrontend(synth, max_batch, batch_window_s)
                 if batching else None)
     return [_start(synth, role, port, host, frontend)

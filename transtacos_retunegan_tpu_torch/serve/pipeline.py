@@ -19,8 +19,17 @@ Port of ``transtacos_retunegan_tpu/serve/pipeline.py``.  Surfaces:
 
 Text pads to a multiple of ``text_bucket``, specs to 64 frames and batches
 to a power of two rows (fill rows repeat row 0 and are dropped), as in the
-JAX package.  Everything runs on ``device`` (default ``'cuda'``); without a
-card the constructor raises.  Each request's Griffin-Lim phase comes from a
+JAX package.  Everything runs on ``devices[0]`` (default ``'cuda'``);
+without a card the constructor raises.
+
+Data-parallel serving (several ``devices``, the app's ``--dp``): one replica
+of both models per device, each with its own folded decoder weights.  The
+batched surfaces (``synthesize_spec_batch``, ``vocode_batch``,
+``tts_batch``) pad their rows to a multiple of the replica count and split
+them contiguously over the replicas, each on a long-lived thread of its
+own, and each replica launches the decode kernel on its rows; the results
+come back in order.  The single-request surfaces run on replica 0, as in
+the JAX package.  Each request's Griffin-Lim phase comes from a
 ``torch.Generator`` seeded with ``(seed, request counter)``, from
 ``content_generator(data)`` (seeded with the request's content, so that a
 batching server's audio does not depend on arrival order), or from an
@@ -29,9 +38,11 @@ explicit ``theta``.
 
 from __future__ import annotations
 
+import copy
 import itertools
 import zlib
-from typing import Any, Dict, List, Optional, Sequence
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -72,13 +83,15 @@ class Synthesizer:
                  kanji_table: Optional[str] = None,
                  max_iters: Optional[int] = None,
                  infer_dtype: str = 'auto',
-                 seed: int = 114514, device='cuda'):
+                 seed: int = 114514, devices: Sequence = ('cuda',)):
         """``acoustic_params`` / ``gen_params``: a flax param tree (numpy
         leaves), the path of one saved with ``weights.save_npz``, or the
         module's own state dict (torch tensors; an acoustic training
         checkpoint gives one through ``train.checkpoint.load_acoustic_params``);
-        seeded random weights when None."""
-        self.device = resolve_device(device)
+        seeded random weights when None.  ``devices``: one replica per entry
+        (replica 0 on the first)."""
+        devs = [resolve_device(d) for d in devices]
+        self.device = devs[0]
         self.cfg = cfg or Config()
         self.max_iters = max_iters or self.cfg.acoustic.max_iters
         if infer_dtype == 'auto':
@@ -100,8 +113,34 @@ class Synthesizer:
                 module.load_state_dict(tree)
             else:
                 load_flax(module, _weights(tree))
-            module.to(self.device).eval().requires_grad_(False)
-        self.decoder = fold_params(self.acoustic.decoder_cell)      # bf16
+            module.eval().requires_grad_(False)
+        # replica 0 is self; the others are shallow copies with their own
+        # models and folded decoder weights (bf16), placed before replica 0
+        # leaves the host
+        self.replicas = [self] + [copy.copy(self) for _ in devs[1:]]
+        for rep, dev in reversed(list(zip(self.replicas, devs))):
+            rep.device = dev
+            for name in ('acoustic', 'generator'):
+                module = getattr(self, name)
+                setattr(rep, name, (module if rep is self else copy.deepcopy(module)).to(dev))
+            rep.decoder = fold_params(rep.acoustic.decoder_cell)
+        self.dp = len(devs)
+        # one long-lived thread per replica (each thread builds its own
+        # cuDNN plans once)
+        self._threads = ([ThreadPoolExecutor(1, thread_name_prefix=f'replica-{i}')
+                          for i in range(self.dp)] if self.dp > 1 else [])
+
+    def _map_rows(self, fn: Callable, *batched: torch.Tensor, split: bool = True) -> list:
+        """``fn(replica, *chunk)`` for contiguous, equal row chunks of the
+        batched tensors, one per replica on its thread (replica 0 alone on
+        the calling thread when ``split`` is off or there is one replica);
+        the lists it returns, concatenated in order."""
+        if not split or self.dp == 1:
+            return list(fn(self, *batched))
+        chunks = zip(*(t.chunk(self.dp) for t in batched))
+        futs = [pool.submit(fn, rep, *c)
+                for pool, rep, c in zip(self._threads, self.replicas, chunks)]
+        return [x for f in futs for x in f.result()]
 
     # ------------------------------------------------------------------
     # Griffin-Lim phase generators
@@ -122,36 +161,37 @@ class Synthesizer:
     # ------------------------------------------------------------------
     # acoustic stage
     # ------------------------------------------------------------------
-    def _pad_rows(self, b: int, rows: int = 1) -> int:
+    def _pad_rows(self, b: int, rows: int = 1, split: bool = False) -> int:
         """Rows to allocate for ``b`` requests: the next power of two, and at
         least ``rows``.  A batching server passes its largest batch as
         ``rows``, so that every cohort runs at one shape and a row's result
         does not depend on how many requests shared its call (cuBLAS and
-        cuDNN pick their algorithms by shape)."""
-        return 1 << (max(b, rows) - 1).bit_length()
+        cuDNN pick their algorithms by shape).  Split over the replicas,
+        a multiple of their count."""
+        return _round_up(1 << (max(b, rows) - 1).bit_length(), self.dp if split else 1)
 
-    def _text_batch(self, pinyins: Sequence[str], rows: int = 1):
-        """pinyins -> text ids [B_pad, N_pad, 2] and lengths [B_pad]; fill
-        rows repeat row 0."""
+    def _text_batch(self, pinyins: Sequence[str], rows: int = 1, split: bool = False):
+        """pinyins -> text ids [B_pad, N_pad, 2] and lengths [B_pad] on the
+        host; fill rows repeat row 0."""
+        if not pinyins:
+            raise ValueError('at least one input is required')
         seqs = [frontend.serialize_inference(p, self.cfg.acoustic.g2p) for p in pinyins]
         n_pad = _round_up(max(max(s.shape[0] for s in seqs), 1),
                           self.cfg.acoustic.text_bucket)
-        b_pad = self._pad_rows(len(seqs), rows)
+        b_pad = self._pad_rows(len(seqs), rows, split)
         text = np.zeros((b_pad, n_pad, 2), np.int64)
         lens = np.zeros((b_pad,), np.int64)
         for i in range(b_pad):
             s = seqs[i if i < len(seqs) else 0]
             text[i, :s.shape[0]] = s
             lens[i] = s.shape[0]
-        return (torch.from_numpy(text).to(self.device),
-                torch.from_numpy(lens).to(self.device))
+        return torch.from_numpy(text), torch.from_numpy(lens)
 
     @torch.no_grad()
     def _encode_batch(self, pinyins: Sequence[str], rows: int = 1):
         """pinyins -> attention keys, values and mask of the padded batch."""
-        if not pinyins:
-            raise ValueError('at least one input is required')
-        return self.acoustic(*self._text_batch(pinyins, rows))
+        text, lens = self._text_batch(pinyins, rows)
+        return self.acoustic(text.to(self.device), lens.to(self.device))
 
     def _encode(self, pinyin: str):
         return self._encode_batch([pinyin])
@@ -164,13 +204,18 @@ class Synthesizer:
                                  enc['mask'], self.max_iters, early_exit=True)
 
     @torch.no_grad()
-    def _acoustic_batch(self, pinyins: Sequence[str], rows: int = 1
-                        ) -> Dict[str, torch.Tensor]:
-        """pinyins -> the decode's outputs for the padded batch plus
-        'mag_outputs' [B_pad, steps*r, F-1] (normalised)."""
-        out = self._decode(self._encode_batch(pinyins, rows))
+    def _acoustic_rows(self, text: torch.Tensor, lens: torch.Tensor
+                       ) -> Dict[str, torch.Tensor]:
+        """Text ids and lengths -> the decode's outputs plus 'mag_outputs'
+        [B, steps*r, F-1] (normalised), on this replica."""
+        out = self._decode(self.acoustic(text.to(self.device), lens.to(self.device)))
         out['mag_outputs'] = posnet_apply(self.acoustic, out['mel_outputs'])
         return out
+
+    def _acoustic_batch(self, pinyins: Sequence[str], rows: int = 1
+                        ) -> Dict[str, torch.Tensor]:
+        """pinyins -> ``_acoustic_rows`` of the padded batch on replica 0."""
+        return self._acoustic_rows(*self._text_batch(pinyins, rows))
 
     def _natural_specs(self, out, b: int) -> List[np.ndarray]:
         """Natural-scale specs [F, T_i] of the first ``b`` rows, each
@@ -181,15 +226,21 @@ class Synthesizer:
         nat = dsp.spec_to_natural_scale(mags, au).cpu()
         return [dsp.fix_zero_dc(nat[i, :t].T, au).numpy() for i, t in enumerate(lengths)]
 
+    def _spec_rows(self, pinyins: List[str], rows: int, split: bool) -> List[np.ndarray]:
+        specs = self._map_rows(
+            lambda rep, t, n: rep._natural_specs(rep._acoustic_rows(t, n), t.shape[0]),
+            *self._text_batch(pinyins, rows, split), split=split)
+        return specs[:len(pinyins)]
+
     def synthesize_spec_batch(self, pinyins: List[str], rows: int = 1) -> List[np.ndarray]:
         """Batched acoustic synthesis: one decode kernel launch for all
-        requests (at least ``rows`` rows, see ``_pad_rows``), each trimmed by
-        its own stop."""
-        return self._natural_specs(self._acoustic_batch(pinyins, rows), len(pinyins))
+        requests (at least ``rows`` rows, see ``_pad_rows``) on each
+        replica, each request trimmed by its own stop."""
+        return self._spec_rows(pinyins, rows, split=True)
 
     def synthesize_spec(self, pinyin: str) -> np.ndarray:
         """Natural-scale spec [F, T] with DC restored, trimmed at the stop."""
-        return self.synthesize_spec_batch([pinyin])[0]
+        return self._spec_rows([pinyin], 1, split=False)[0]
 
     def synthesize_with_alignment(self, pinyin: str) -> Dict[str, Any]:
         """The spec [F, T], the decoder alignment [n_text, T // r] trimmed to
@@ -258,11 +309,16 @@ class Synthesizer:
                      rows: int = 1) -> List[np.ndarray]:
         """Natural-scale specs (either orientation) -> neural wavs: one
         Griffin-Lim template and one generator forward for the batch (at
-        least ``rows`` rows, see ``_pad_rows``).
+        least ``rows`` rows, see ``_pad_rows``) on each replica.
         Specs pad to a common 64-frame bucket with their own near-silence
         and each wav trims back to its spec's length.  Each row's phase is
-        drawn from ``generators[i]`` or given as ``thetas[i]``
-        [n_freq, T_bucket]; by default from the request counter."""
+        drawn from ``generators[i]`` (on replica 0's device) or given as
+        ``thetas[i]`` [n_freq, T_bucket]; by default from the request
+        counter."""
+        return self._vocode_rows(specs, generators, thetas, rows, split=True)
+
+    def _vocode_rows(self, specs, generators, thetas, rows: int,
+                     split: bool) -> List[np.ndarray]:
         if not specs:
             return []
         for name, per_row in (('generators', generators), ('thetas', thetas)):
@@ -279,7 +335,7 @@ class Synthesizer:
         t_real = [s.shape[1] for s in oriented]
         t_pad = _round_up(max(max(t_real), 64), 64)
         b = len(oriented)
-        mags = np.zeros((self._pad_rows(b, rows), au.n_freq, t_pad), np.float32)
+        mags = np.zeros((self._pad_rows(b, rows, split), au.n_freq, t_pad), np.float32)
         for i, s in enumerate(oriented):
             mags[i, :, :s.shape[1]] = s
             mags[i, :, s.shape[1]:] = float(s.min())
@@ -292,14 +348,17 @@ class Synthesizer:
                 self._generator() for _ in range(b)]
             theta = dsp.random_phase((b, au.n_freq, t_pad), gens, self.device)
         theta = torch.cat([theta, theta[:1].expand(mags.shape[0] - b, -1, -1)])
-        wavs = self._vocode_natural(torch.from_numpy(mags).to(self.device), theta)
-        wavs = wavs[:b].cpu().numpy()
-        return [wavs[i, :au.hop_length * t_real[i]] for i in range(b)]
+        wavs = self._map_rows(
+            lambda rep, m, th: rep._vocode_natural(m.to(rep.device),
+                                                   th.to(rep.device)).cpu().numpy(),
+            torch.from_numpy(mags), theta, split=split)
+        return [wavs[i][:au.hop_length * t_real[i]] for i in range(b)]
 
     def vocode(self, spec: np.ndarray, theta: Optional[torch.Tensor] = None
                ) -> np.ndarray:
         """Natural-scale spec (either orientation) -> neural wav."""
-        return self.vocode_batch([spec], thetas=None if theta is None else [theta])[0]
+        return self._vocode_rows([spec], None, None if theta is None else [theta], 1,
+                                 split=False)[0]
 
     def _griffin_lim(self, spec: np.ndarray, theta=None) -> np.ndarray:
         """natural spec [F, T] -> the acoustic service's Griffin-Lim wav

@@ -15,6 +15,16 @@ with ``eps_root=0``.
 
 Random draws come from a ``models.layers.Draws`` (explicit
 ``torch.Generator``s for the noise, dropout and teacher-forcing streams).
+
+A state with a data-parallel ``shard`` (``parallel.current_shard()``, set
+by the trainer) computes the step on its share of the global batch: the
+step hands the shard to its ``Draws`` (draws at the global batch's shape,
+batch norm over the global batch), and averages the gradients over the
+ranks before the clip and the logged losses after the step, so that the
+step is the global batch's.  ``infer_step`` takes no shard: it is local.
+The explicit all-reduce (not a ``DistributedDataParallel`` wrapper) also
+serves ``train_step_hoisted``, whose backward is a plain ``.backward()``
+as well, and keeps the ranks' parameters bitwise equal.
 Nothing here waits for the card: the losses are 0-dim device tensors
 (``tfr`` and ``learning_rate`` are host floats).
 """
@@ -32,6 +42,7 @@ from ..models.acoustic import Tacotron, compute_losses, posnet_apply
 from ..models.decoder_fast import hoisted_force_decode
 from ..models.layers import Draws
 from ..ops.fused_decoder import fold_params, fused_decode_full
+from ..parallel import Shard, all_reduce_grads, mean_over_ranks
 from ..serve.pipeline import resolve_device
 from ..weights import seeded_init
 from .optim import clip_by_global_norm_, global_norm, zero_grad_
@@ -44,10 +55,12 @@ Batch = Dict[str, torch.Tensor]
 class TrainState:
     """The model (which holds the parameters and, for the 'cb' encoder,
     the batch statistics) and its optimizer; ``step`` counts train steps
-    on the host."""
+    on the host; ``shard`` is the data-parallel shard the steps run under
+    (None: one process)."""
     step: int
     model: Tacotron
     opt: torch.optim.Optimizer
+    shard: Optional[Shard] = None
 
     @property
     def extra_vars(self) -> Dict[str, torch.Tensor]:
@@ -63,12 +76,13 @@ def make_optimizer(cfg: Config, model: Tacotron) -> torch.optim.Optimizer:
                             betas=(hp.adam_beta1, hp.adam_beta2), eps=hp.adam_eps)
 
 
-def init_state(cfg: Config, seed: int = 114514, device='cuda') -> TrainState:
+def init_state(cfg: Config, seed: int = 114514, device='cuda',
+               shard: Optional[Shard] = None) -> TrainState:
     """Seeded weights (``weights.seeded_init``) and a fresh optimizer on
-    ``device``; load other weights with ``weights.load_flax`` on
-    ``state.model`` before the first step."""
+    ``device``, stepping under ``shard``; load other weights with
+    ``weights.load_flax`` on ``state.model`` before the first step."""
     model = seeded_init(Tacotron(cfg), seed).to(resolve_device(device))
-    return TrainState(0, model, make_optimizer(cfg, model))
+    return TrainState(0, model, make_optimizer(cfg, model), shard)
 
 
 def _upcast_batch(batch: Batch) -> Batch:
@@ -78,7 +92,12 @@ def _upcast_batch(batch: Batch) -> Batch:
             for k, v in batch.items()}
 
 
-def _forward(model: Tacotron, batch: Batch, tf_ratio, draws: Optional[Draws],
+def _sharded(draws: Optional[Draws], state: TrainState) -> Draws:
+    """``draws`` under the state's data-parallel shard."""
+    return dataclasses.replace(draws or Draws(), shard=state.shard)
+
+
+def _forward(model: Tacotron, batch: Batch, tf_ratio, draws: Draws,
              encoder_only: bool = False):
     return model(batch['text'], batch['text_lengths'], batch['prds'],
                  batch['spec_lengths'], batch['mel_targets'], batch['f0_targets'],
@@ -88,12 +107,14 @@ def _forward(model: Tacotron, batch: Batch, tf_ratio, draws: Optional[Draws],
 
 def _update(cfg: Config, state: TrainState, losses: Dict[str, torch.Tensor],
             tfr: float) -> Tuple[TrainState, Dict[str, Any]]:
-    """Backward, clip, Adam at the Noam rate of ``state.step``."""
+    """Backward, the average over the ranks, clip, Adam at the Noam rate
+    of ``state.step``."""
     hp = cfg.acoustic
     params = list(state.model.parameters())
     zero_grad_(params)
     losses['loss'].backward()
     grads = [p.grad for p in params]
+    all_reduce_grads(grads, state.shard)
     gnorm = global_norm(grads)
     clip_by_global_norm_(grads, hp.grad_clip_norm, gnorm)
     lr = noam_lr(state.step, hp)
@@ -101,7 +122,8 @@ def _update(cfg: Config, state: TrainState, losses: Dict[str, torch.Tensor],
         group['lr'] = lr
     state.opt.step()
     state.step += 1
-    out: Dict[str, Any] = {k: v.detach() for k, v in losses.items()}
+    out: Dict[str, Any] = mean_over_ranks({k: v.detach() for k, v in losses.items()},
+                                          state.shard)
     out.update(grad_norm=gnorm.detach(), tfr=tfr, learning_rate=lr)
     return state, out
 
@@ -113,7 +135,7 @@ def train_step(cfg: Config, state: TrainState, batch: Batch,
     batch = _upcast_batch(batch)
     tfr = teacher_forcing_ratio(state.step, cfg.acoustic)
     state.model.train()
-    out = _forward(state.model, batch, tfr, draws)
+    out = _forward(state.model, batch, tfr, _sharded(draws, state))
     return _update(cfg, state, compute_losses(out, batch, cfg, state.model), tfr)
 
 
@@ -137,13 +159,13 @@ def train_step_hoisted(cfg: Config, state: TrainState, batch: Batch,
     dropout masks are ``draws.prenet_keep`` or drawn from
     ``draws.dropout``."""
     batch = _upcast_batch(batch)
-    draws = draws or Draws()
+    draws = _sharded(draws, state)
     model = state.model
     model.train()
     enc = _forward(model, batch, 1.0, draws, encoder_only=True)
     mel_out, stop_out, alignments = hoisted_force_decode(
         model.decoder_cell, cfg, batch['mel_targets'], enc['keys'], enc['values'],
-        enc['mask'], keep=draws.prenet_keep, generator=draws.dropout)
+        enc['mask'], keep=draws.prenet_keep, generator=draws.dropout, shard=draws.shard)
     out = dict(enc, mel_outputs=mel_out, stop_token_outputs=stop_out,
                mag_outputs=posnet_apply(model, mel_out), alignments=alignments)
     return _update(cfg, state, compute_losses(out, batch, cfg, model), 1.0)
@@ -165,23 +187,24 @@ def frozen_stats(model: Tacotron):
 def summary_stats(cfg: Config, state: TrainState, batch: Batch,
                   draws: Optional[Draws] = None) -> Dict[str, Any]:
     """TensorBoard histogram payloads: the training forward's mel and mag
-    outputs, each parameter's gradient norm and the predicted prosody
+    outputs (this rank's rows), each parameter's gradient norm (of the
+    global batch's loss under the state's shard) and the predicted prosody
     marks; the state (parameters, gradients, batch statistics) is left
     as it was."""
     batch = _upcast_batch(batch)
     model = state.model
     tfr = teacher_forcing_ratio(state.step, cfg.acoustic)
     with frozen_stats(model):
-        out = _forward(model, batch, tfr, draws)
+        out = _forward(model, batch, tfr, _sharded(draws, state))
         loss = compute_losses(out, batch, cfg, model)['loss']
         names, params = zip(*model.named_parameters())
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
+            params, torch.autograd.grad(loss, params, allow_unused=True))]
+    all_reduce_grads(grads, state.shard)
     return {'mel_outputs': out['mel_outputs'].detach(),
             'mag_outputs': out['mag_outputs'].detach(),
             'prds_out': out['prds_out'],
-            'grad_norms': {n: (torch.linalg.vector_norm(g) if g is not None
-                               else torch.zeros((), device=loss.device))
-                           for n, g in zip(names, grads)}}
+            'grad_norms': {n: torch.linalg.vector_norm(g) for n, g in zip(names, grads)}}
 
 
 @torch.no_grad()

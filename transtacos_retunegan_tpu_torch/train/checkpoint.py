@@ -10,7 +10,10 @@ of orbax trees, under the JAX package's names and keep counts.
   both optimizers' states, step and epoch).
 
 ``scan_checkpoint`` finds the newest by sorted prefix match.  Each file is
-written under a temporary name and renamed into place.
+written under a temporary name and renamed into place.  A state with a
+data-parallel ``shard`` is saved by rank 0 (the ranks' states are equal)
+while every rank waits for it at a barrier; every rank restores from the
+same files.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
+
+from ..parallel import barrier
 
 
 def scan_checkpoint(dirpath: str, prefix: str) -> Optional[str]:
@@ -50,16 +55,26 @@ def _save(path: str, obj) -> None:
     os.replace(tmp, path)
 
 
+def _writes(state) -> bool:
+    """Whether this process writes ``state``'s checkpoint: rank 0 of its
+    data-parallel shard, or the one process."""
+    return state.shard is None or state.shard.index == 0
+
+
 def save_acoustic(run_dir: str, state, keep: int = 1) -> str:
     """Write ``ckpt_`` of ``state`` (an ``acoustic_step.TrainState``) at its
-    step; keep the newest ``keep``."""
-    os.makedirs(run_dir, exist_ok=True)
+    step; keep the newest ``keep``.  Under the state's shard rank 0 writes
+    and all ranks return when the file is in place."""
     path = os.path.join(run_dir, f'ckpt_{state.step:08d}')
-    _save(path, {'step': state.step,
-                 'params': {n: p.detach() for n, p in state.model.named_parameters()},
-                 'extra_vars': state.extra_vars,
-                 'opt_state': state.opt.state_dict()})
-    prune_old(run_dir, 'ckpt_', keep)
+    if _writes(state):
+        os.makedirs(run_dir, exist_ok=True)
+        _save(path, {'step': state.step,
+                     'params': {n: p.detach() for n, p in state.model.named_parameters()},
+                     'extra_vars': state.extra_vars,
+                     'opt_state': state.opt.state_dict()})
+        prune_old(run_dir, 'ckpt_', keep)
+    if state.shard is not None:
+        barrier()
     return path
 
 
@@ -90,17 +105,21 @@ def load_acoustic_params(path: str) -> Dict[str, torch.Tensor]:
 
 def save_gan(run_dir: str, state, epoch: int, keep: int = 2) -> Tuple[str, str]:
     """Write ``g_``/``do_`` of ``state`` (a ``vocoder_step.GANState``) at
-    its step; keep the newest ``keep`` of each."""
-    os.makedirs(run_dir, exist_ok=True)
+    its step; keep the newest ``keep`` of each.  Under the state's shard
+    rank 0 writes and all ranks return when the files are in place."""
     g_path = os.path.join(run_dir, f'g_{state.step:08d}')
     do_path = os.path.join(run_dir, f'do_{state.step:08d}')
-    _save(g_path, {'generator': state.generator.state_dict()})
-    _save(do_path, {'discriminators': state.discriminators.state_dict(),
-                    'gen_opt': state.gen_opt.state_dict(),
-                    'disc_opt': state.disc_opt.state_dict(),
-                    'step': state.step, 'epoch': epoch})
-    prune_old(run_dir, 'g_', keep)
-    prune_old(run_dir, 'do_', keep)
+    if _writes(state):
+        os.makedirs(run_dir, exist_ok=True)
+        _save(g_path, {'generator': state.generator.state_dict()})
+        _save(do_path, {'discriminators': state.discriminators.state_dict(),
+                        'gen_opt': state.gen_opt.state_dict(),
+                        'disc_opt': state.disc_opt.state_dict(),
+                        'step': state.step, 'epoch': epoch})
+        prune_old(run_dir, 'g_', keep)
+        prune_old(run_dir, 'do_', keep)
+    if state.shard is not None:
+        barrier()
     return g_path, do_path
 
 

@@ -17,19 +17,26 @@ installed; ``--profile_dir`` records a ``torch.profiler`` trace;
 ``--debug_nans`` checks every step's losses and gradients for finite values
 (and so waits for the card each step).
 
-One device only: ``--num_devices > 1``, ``--coordinator`` and
-``--model_parallel > 1`` are refused (multi-GPU training is ROADMAP queue
-1.7), and ``--device_data`` too (queue 1.8).  The model trains in float32
-with TF32 off.  ``--device`` defaults to ``cuda`` and raises without a card.
+Data parallelism (``parallel``): ``--num_devices N`` runs one process per
+device, each on its share of every global batch, with the gradients
+averaged before the clip; the command starts the N local processes itself,
+or joins the group of a launcher (``torchrun --nproc_per_node N``) or of
+``--coordinator``/``--num_processes``/``--process_id``.  Rank r trains on
+``cuda:LOCAL_RANK`` (NCCL; gloo with ``--device cpu``); rank 0 alone
+writes logs, summaries, checkpoints and the eval dump.  ``--model_parallel
+> 1`` (ROADMAP queue 1.7b) and ``--device_data`` (queue 1.8) are refused.
+The model trains in float32 with TF32 off.  ``--device`` defaults to
+``cuda`` and raises without a card.
 
 Usage:
   python -m transtacos_retunegan_tpu_torch.train.train_acoustic \\
-      --data_dir ~/Data/processed --log_path runs/acoustic
+      --data_dir ~/Data/processed --log_path runs/acoustic [--num_devices 8]
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import os
 import time
 
@@ -42,6 +49,8 @@ from ..data.feeder import AcousticDataset, DataFeeder
 from ..data.prefetch import device_batches
 from ..eval.metrics import prds_accuracy
 from ..models.layers import Draws
+from ..parallel import (any_rank, current_shard, is_primary, join_group, replicate,
+                        start_workers, world_size)
 from ..serve.pipeline import resolve_device
 from ..text import frontend
 from ..utils.logging import ValueWindow, get_logger, host_rss_gb
@@ -54,21 +63,20 @@ EXPLODED = 300.0
 
 
 def _refuse_unported(args) -> None:
-    if ((getattr(args, 'num_devices', 0) or 0) > 1 or getattr(args, 'coordinator', None)
-            or (getattr(args, 'model_parallel', 1) or 1) > 1):
-        raise SystemExit('train_acoustic runs on one device: multi-GPU training '
-                         '(--num_devices > 1, --coordinator, --model_parallel) '
-                         'is not ported yet (ROADMAP queue 1.7, DDP over NCCL)')
+    if (getattr(args, 'model_parallel', 1) or 1) > 1:
+        raise SystemExit('--model_parallel > 1 (tensor parallelism) is not ported '
+                         'yet (ROADMAP queue 1.7b); data parallelism is '
+                         '--num_devices')
     if getattr(args, 'device_data', False):
         raise SystemExit('--device_data (the corpus resident on the device) is not '
                          'ported yet (ROADMAP queue 1.8)')
 
 
-def make_draws(seed: int, device: torch.device) -> Draws:
+def make_draws(seed: int, device: torch.device, shard=None) -> Draws:
     """The noise, dropout and teacher-forcing streams of a run, on
-    ``device``, seeded from ``seed``."""
+    ``device``, seeded from ``seed``, drawn under ``shard``."""
     gens = [torch.Generator(device=device).manual_seed(seed + i) for i in range(3)]
-    return Draws(noise=gens[0], dropout=gens[1], tf=gens[2])
+    return Draws(noise=gens[0], dropout=gens[1], tf=gens[2], shard=shard)
 
 
 def _check_finite(losses, model, step: int) -> None:
@@ -84,27 +92,41 @@ def _check_finite(losses, model, step: int) -> None:
 
 def train(args) -> None:
     _refuse_unported(args)
-    device = resolve_device(getattr(args, 'device', 'cuda'))
+    if start_workers(train, args):
+        return
+    device = resolve_device(join_group(args, getattr(args, 'device', 'cuda')))
     cfg = Config.load(args.config) if args.config else Config()
+    if cfg.acoustic.batch_size % world_size():
+        raise SystemExit(f'batch_size {cfg.acoustic.batch_size} not divisible by '
+                         f'{world_size()} devices')
     if device.type == 'cuda':
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     os.makedirs(args.log_path, exist_ok=True)
-    cfg.save(args.log_path)
-    logger = get_logger('acoustic', os.path.join(args.log_path, 'train.log'))
-    try:
+    if is_primary():
+        cfg.save(args.log_path)
+    logger = get_logger('acoustic', os.path.join(args.log_path, 'train.log'),
+                        primary=is_primary())
+    # every rank computes the summaries under the state's shard (the 'cb'
+    # encoder's batch norm and the gradient norms are the global batch's);
+    # rank 0 writes them
+    summaries = importlib.util.find_spec('tensorboard') is not None
+    sw = None
+    if summaries and is_primary():
         from torch.utils.tensorboard import SummaryWriter
         sw = SummaryWriter(args.log_path)
-    except ImportError:
-        sw = None
 
     dataset = AcousticDataset(args.data_dir, cfg, getattr(args, 'train_split', 'train'))
     logger.info(f'dataset: {len(dataset)} examples')
-    state = init_state(cfg, cfg.audio.randseed, device)
+    state = init_state(cfg, cfg.audio.randseed, device, current_shard())
     n_params = sum(p.numel() for p in state.model.parameters())
     logger.info(f'model params: {n_params:,}')
     if ckpt.restore_acoustic(args.log_path, state) is not None:
         logger.info(f'resumed from step {state.step}')
+    replicate(state.model)
+    if world_size() > 1:
+        logger.info(f'data parallel over {world_size()} processes, '
+                    f'{cfg.acoustic.batch_size // world_size()} rows each')
     draws = make_draws(cfg.audio.randseed + 3 * state.step, device)
 
     feeder = DataFeeder(dataset, cfg)
@@ -132,7 +154,7 @@ def train(args) -> None:
         for batch in batches:
             if step >= max_steps:
                 break
-            if args.profile_dir and step == args.profile_start:
+            if args.profile_dir and step == args.profile_start and is_primary():
                 prof = _start_profiler(device)
             step_fn = train_step_hoisted if hoist_force_eligible(cfg, step) else train_step
             state, losses = step_fn(cfg, state, batch, draws)
@@ -164,14 +186,14 @@ def train(args) -> None:
                                  f'{args.log_interval} steps (step {step}), aborting')
                     raise SystemExit(1)
                 rss_limit = getattr(args, 'rss_limit_gb', 0)
-                if rss_limit and host_rss_gb() > rss_limit:
+                if rss_limit and any_rank(host_rss_gb() > rss_limit, device):
                     path = ckpt.save_acoustic(args.log_path, state, cfg.acoustic.max_ckpt)
                     logger.warning(f'host RSS {host_rss_gb():.1f} GiB over --rss_limit_gb '
                                    f'{rss_limit}; checkpointed to {path}, exiting 75 '
                                    'for resume')
                     raise SystemExit(75)
 
-            if sw is not None and step % args.summary_interval == 0:
+            if summaries and step % args.summary_interval == 0:
                 # draws of their own, so that summaries leave the run's streams
                 _summaries(cfg, state, batch, make_draws(step, device), sw, step, losses)
 
@@ -208,10 +230,13 @@ def _stop_profiler(prof, profile_dir: str, logger) -> None:
 
 def _summaries(cfg, state, batch, draws, sw, step: int, losses) -> None:
     """Scalars, and the histograms of ``summary_stats`` (outputs against
-    targets, gradient norms per parameter, prosody accuracy)."""
+    targets, gradient norms per parameter, prosody accuracy); ``sw`` None
+    computes them only."""
+    stats = summary_stats(cfg, state, batch, draws)
+    if sw is None:
+        return
     for k, v in losses.items():
         sw.add_scalar(f'train/{k}', float(v), step)
-    stats = summary_stats(cfg, state, batch, draws)
     sw.add_histogram('mel_outputs', stats['mel_outputs'].cpu().numpy(), step)
     sw.add_histogram('mel_targets', batch['mel_targets'].float().cpu().numpy(), step)
     sw.add_histogram('mag_outputs', stats['mag_outputs'].cpu().numpy(), step)
@@ -250,8 +275,8 @@ def format_decode_dump(cfg, batch, out) -> list:
 def _dump_eval(cfg, state, batch, log_path, step, logger, sw):
     """Eval artifacts of the batch's first item: the teacher-forced
     forward (fixed noise and dropout seeds, batch statistics left as they
-    were), the decoded input, Griffin-Lim wavs of target and predicted
-    mag, alignment and spectrogram plots."""
+    were; on every rank), the decoded input, Griffin-Lim wavs of target
+    and predicted mag, alignment and spectrogram plots (rank 0)."""
     from ..audio import features as F
     device = batch['text'].device
     batch = {k: v.float() if v.dtype in (torch.float16, torch.bfloat16) else v
@@ -260,7 +285,9 @@ def _dump_eval(cfg, state, batch, log_path, step, logger, sw):
         out = state.model(batch['text'], batch['text_lengths'], batch['prds'],
                           batch['spec_lengths'], batch['mel_targets'],
                           batch['f0_targets'], batch['c0_targets'], 1.0, train=True,
-                          draws=make_draws(0, device))
+                          draws=make_draws(0, device, state.shard))
+    if not is_primary():
+        return
     host = {k: v.cpu().numpy() for k, v in batch.items()}
     out = {k: v.cpu().numpy() for k, v in out.items() if isinstance(v, torch.Tensor)}
     for line in format_decode_dump(cfg, host, out):
@@ -306,11 +333,12 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument('--train_split', default='train',
                    help="index name: 'train' or a voice bank like 'vbank_male'")
     p.add_argument('--num_devices', type=int, default=0,
-                   help='0/1 only (multi-GPU training is not ported yet)')
+                   help='data parallelism over N devices, one process each '
+                        '(started here unless a launcher or --coordinator did)')
     p.add_argument('--model_parallel', type=int, default=1,
-                   help='1 only (multi-GPU training is not ported yet)')
+                   help='1 only (tensor parallelism is ROADMAP queue 1.7b)')
     p.add_argument('--coordinator', default=None,
-                   help='refused: multi-host training is not ported yet')
+                   help='host:port of rank 0 for a group started elsewhere')
     p.add_argument('--num_processes', type=int, default=None)
     p.add_argument('--process_id', type=int, default=None)
     p.add_argument('--rss_limit_gb', type=float, default=0,

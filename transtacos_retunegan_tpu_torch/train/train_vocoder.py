@@ -12,14 +12,22 @@ spectrograms where ``tensorboard``/``matplotlib`` are installed;
 (checkpoint and exit 75 for a resume); validation every interval.
 ``--finetune`` consumes the acoustic preprocessor's features.
 
-One device only: ``--num_devices > 1``, ``--coordinator`` and
-``--model_parallel > 1`` are refused (multi-GPU training is ROADMAP queue
-1.7).  ``--device`` defaults to ``cuda`` and raises without a card.  At
-``compute_dtype='float32'`` TF32 is turned off for matmuls and convs.
+Data parallelism (``parallel``): ``--num_devices N`` runs one process per
+device, each on ``batch_size / N`` examples of every global batch (a
+disjoint stride of the shared shuffled order), with every update's
+gradients averaged over the ranks; the command starts the N local
+processes itself, or joins the group of a launcher (``torchrun``) or of
+``--coordinator``/``--num_processes``/``--process_id``.  Rank r trains on
+``cuda:LOCAL_RANK`` (NCCL; gloo with ``--device cpu``); rank 0 alone
+writes logs, summaries and checkpoints and validates (the eval step takes
+no shard, so it makes no collective).  ``--model_parallel
+> 1`` is refused (ROADMAP queue 1.7b).  ``--device`` defaults to ``cuda``
+and raises without a card.  At ``compute_dtype='float32'`` TF32 is turned
+off for matmuls and convs.
 
 Usage:
   python -m transtacos_retunegan_tpu_torch.train.train_vocoder \\
-      --data_dir ~/Data/processed --log_path runs/vocoder --finetune
+      --data_dir ~/Data/processed --log_path runs/vocoder --finetune [--num_devices 8]
 """
 
 from __future__ import annotations
@@ -37,6 +45,8 @@ from ..config import Config
 from ..data.prefetch import device_batches
 from ..data.vocoder_data import VocoderDataset, VocoderLoader
 from ..models.precision import resolve_dtype
+from ..parallel import (any_rank, current_shard, is_primary, join_group, replicate,
+                        start_workers, world_size)
 from ..serve.pipeline import resolve_device
 from ..utils.logging import get_logger, host_rss_gb
 from . import checkpoint as ckpt
@@ -51,32 +61,40 @@ def _config(args) -> Config:
     return cfg
 
 
-def _refuse_multi_device(args) -> None:
-    if ((getattr(args, 'num_devices', 0) or 0) > 1 or getattr(args, 'coordinator', None)
-            or (getattr(args, 'model_parallel', 1) or 1) > 1):
-        raise SystemExit('train_vocoder runs on one device: multi-GPU training '
-                         '(--num_devices > 1, --coordinator, --model_parallel) '
-                         'is not ported yet (ROADMAP queue 1.7, DDP over NCCL)')
+def _refuse_unported(args) -> None:
+    if (getattr(args, 'model_parallel', 1) or 1) > 1:
+        raise SystemExit('--model_parallel > 1 (tensor parallelism) is not ported '
+                         'yet (ROADMAP queue 1.7b); data parallelism is '
+                         '--num_devices')
 
 
 def train(args) -> None:
-    _refuse_multi_device(args)
-    device = resolve_device(getattr(args, 'device', 'cuda'))
+    _refuse_unported(args)
+    if start_workers(train, args):
+        return
+    device = resolve_device(join_group(args, getattr(args, 'device', 'cuda')))
     cfg = _config(args)
     hv = cfg.vocoder
+    if hv.batch_size % world_size():
+        raise SystemExit(f'batch_size {hv.batch_size} not divisible by '
+                         f'{world_size()} devices')
     if device.type == 'cuda' and resolve_dtype(hv.compute_dtype) is None:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     if args.debug_nans:
         torch.autograd.set_detect_anomaly(True)
     os.makedirs(args.log_path, exist_ok=True)
-    cfg.save(args.log_path)
-    logger = get_logger('vocoder', os.path.join(args.log_path, 'rtg.log'))
-    try:
-        from torch.utils.tensorboard import SummaryWriter
-        sw = SummaryWriter(args.log_path)
-    except ImportError:
-        sw = None
+    if is_primary():
+        cfg.save(args.log_path)
+    logger = get_logger('vocoder', os.path.join(args.log_path, 'rtg.log'),
+                        primary=is_primary())
+    sw = None
+    if is_primary():
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+            sw = SummaryWriter(args.log_path)
+        except ImportError:
+            pass
 
     trainset = VocoderDataset(getattr(args, 'train_split', 'train'),
                               args.data_dir, cfg, finetune=args.finetune)
@@ -87,7 +105,7 @@ def train(args) -> None:
                            num_workers=hv.num_workers)
     steps_per_epoch = max(1, len(loader))
 
-    state = init_gan_state(cfg, cfg.audio.randseed, device)
+    state = init_gan_state(cfg, cfg.audio.randseed, device, current_shard())
     noise = torch.Generator(device=device).manual_seed(cfg.audio.randseed)
     n_g = sum(p.numel() for p in state.generator.parameters())
     n_d = sum(p.numel() for p in state.discriminators.parameters())
@@ -97,6 +115,11 @@ def train(args) -> None:
     if restored is not None:
         logger.info(f'resumed from step {state.step} epoch {last_epoch}')
         noise.manual_seed(cfg.audio.randseed + state.step)
+    replicate(state.generator)
+    replicate(state.discriminators)
+    if world_size() > 1:
+        logger.info(f'data parallel over {world_size()} processes, '
+                    f'{loader.bs} examples each')
 
     prefetch = getattr(args, 'prefetch', 2)
     step = state.step
@@ -138,7 +161,7 @@ def train(args) -> None:
                                  f'{args.stdout_interval} steps, aborting')
                     raise SystemExit(1)
                 rss_limit = getattr(args, 'rss_limit_gb', 0)
-                if rss_limit and host_rss_gb() > rss_limit:
+                if rss_limit and any_rank(host_rss_gb() > rss_limit, device):
                     paths = ckpt.save_gan(args.log_path, state, epoch)
                     logger.warning(f'host RSS {host_rss_gb():.1f} GiB over '
                                    f'--rss_limit_gb {rss_limit}; checkpointed '
@@ -152,7 +175,7 @@ def train(args) -> None:
             if step % args.checkpoint_interval == 0:
                 logger.info(f'saved {ckpt.save_gan(args.log_path, state, epoch)}')
 
-            if step % args.validation_interval == 0:
+            if step % args.validation_interval == 0 and is_primary():
                 _validate(cfg, state, validset, step, logger, sw, device)
                 last_t = time.time()                 # exclude validation time
 
@@ -226,11 +249,12 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument('--train_split', default='train',
                    help="index name: 'train' or a voice bank like 'vbank_male'")
     p.add_argument('--num_devices', type=int, default=0,
-                   help='0/1 only (multi-GPU training is not ported yet)')
+                   help='data parallelism over N devices, one process each '
+                        '(started here unless a launcher or --coordinator did)')
     p.add_argument('--model_parallel', type=int, default=1,
-                   help='1 only (multi-GPU training is not ported yet)')
+                   help='1 only (tensor parallelism is ROADMAP queue 1.7b)')
     p.add_argument('--coordinator', default=None,
-                   help='refused: multi-host training is not ported yet')
+                   help='host:port of rank 0 for a group started elsewhere')
     p.add_argument('--num_processes', type=int, default=None)
     p.add_argument('--process_id', type=int, default=None)
     p.add_argument('--rss_limit_gb', type=float, default=0,

@@ -20,13 +20,22 @@ gradients of an update whose loss or gradient norm is not finite and still
 steps the optimizer (the moments decay, weight decay applies, the count
 advances), as the JAX step does.
 
+A state with a data-parallel ``shard`` (``parallel.current_shard()``, set
+by the trainer) computes the step on its share of the global batch: the
+noise is drawn at the global batch's shape (this rank keeps its rows), the
+strip-mirror loss takes the global means, each update averages its
+gradients (and the loss its guard reads) over the ranks, and the metrics
+are averaged after the step.  The explicit all-reduce also covers the R1
+penalty's ``torch.autograd.grad(..., create_graph=True)``.  The eval step
+takes no shard: it is local to the rank that runs it.
+
 Nothing here waits for the card: metrics are 0-dim device tensors.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -36,6 +45,7 @@ from ..models import vocoder_losses as L
 from ..models.discriminators import Discriminators
 from ..models.generators import make_generator
 from ..models.precision import compute_dtype, float32
+from ..parallel import Shard, all_reduce_grads, mean_over_ranks, shard_draw
 from ..serve.pipeline import resolve_device
 from ..weights import seeded_init
 from .optim import clip_by_global_norm_, global_norm, zero_grad_
@@ -46,12 +56,14 @@ Batch = Dict[str, torch.Tensor]
 @dataclasses.dataclass
 class GANState:
     """The generator, the discriminators and their optimizers (the modules
-    hold the parameters; ``step`` counts train steps on the host)."""
+    hold the parameters; ``step`` counts train steps on the host), and the
+    data-parallel shard the steps run under (None: one process)."""
     step: int
     generator: nn.Module
     gen_opt: torch.optim.Optimizer
     discriminators: Discriminators
     disc_opt: torch.optim.Optimizer
+    shard: Optional[Shard] = None
 
 
 def learning_rate(base: float, decay: float, update: int, epoch_updates: int) -> float:
@@ -67,15 +79,17 @@ def make_optimizers(cfg: Config, generator: nn.Module, discriminators: nn.Module
             torch.optim.AdamW(discriminators.parameters(), lr=hv.learning_rate_d, **kw))
 
 
-def init_gan_state(cfg: Config, seed: int = 114514, device='cuda') -> GANState:
+def init_gan_state(cfg: Config, seed: int = 114514, device='cuda',
+                   shard: Optional[Shard] = None) -> GANState:
     """Seeded weights (``weights.seeded_init``) and fresh optimizers on
-    ``device``; load other weights with ``weights.load_flax`` on
-    ``state.generator`` / ``state.discriminators``."""
+    ``device``, stepping under ``shard``; load other weights with
+    ``weights.load_flax`` on ``state.generator`` /
+    ``state.discriminators``."""
     dev = resolve_device(device)
     gen = seeded_init(make_generator(cfg), seed).to(dev)
     disc = seeded_init(Discriminators(cfg), seed + 1).to(dev)
     gopt, dopt = make_optimizers(cfg, gen, disc)
-    return GANState(0, gen, gopt, disc, dopt)
+    return GANState(0, gen, gopt, disc, dopt, shard)
 
 
 def apply_generator(cfg: Config, generator: nn.Module, batch: Batch,
@@ -90,7 +104,7 @@ def apply_generator(cfg: Config, generator: nn.Module, batch: Batch,
                             noise=noise)
         else:
             out = generator(batch['mel'], batch['tmpl'][..., None], noise=noise)
-    return out[..., 0].float()
+    return float32(out[..., 0])
 
 
 def _disc_forward(cfg: Config, disc: Discriminators, y, y_hat, specs_r, specs_g):
@@ -108,11 +122,14 @@ def _mean_score(scores: List[torch.Tensor]) -> torch.Tensor:
 
 
 def _guarded_update(opt: torch.optim.Optimizer, loss: torch.Tensor, lr: float,
-                    clip_norm: float) -> None:
-    """NaN guard, optional global-norm clip, then the AdamW update at
-    ``lr``, without a host sync."""
+                    clip_norm: float, shard: Optional[Shard] = None) -> None:
+    """The average over the ranks of ``shard``, NaN guard, optional
+    global-norm clip, then the AdamW update at ``lr``, without a host
+    sync."""
     params = [p for group in opt.param_groups for p in group['params']]
     grads = [p.grad for p in params]
+    loss = loss.clone()
+    all_reduce_grads(grads + [loss.view(1)], shard)
     ok = torch.isfinite(loss) & torch.isfinite(global_norm(grads))
     for g in grads:
         g.masked_fill_(~ok, 0.0)
@@ -156,7 +173,7 @@ def discriminator_phase(cfg: Config, state: GANState, y: torch.Tensor,
         total.backward()
         _guarded_update(state.disc_opt, total.detach(), learning_rate(
             hv.learning_rate_d, hv.lr_decay, state.step * hv.d_train_times + i,
-            steps_per_epoch * hv.d_train_times), hv.grad_clip_norm)
+            steps_per_epoch * hv.d_train_times), hv.grad_clip_norm, state.shard)
         d_aux = {'loss_disc_s': ls, 'loss_disc_p': lp, 'loss_disc_t': lt,
                  'loss_r1': r1,
                  'sc_s_r': _mean_score(sr), 'sc_s_g': _mean_score(sg),
@@ -181,7 +198,7 @@ def generator_phase(cfg: Config, state: GANState, y: torch.Tensor,
         zero = torch.zeros((), device=y.device)
         loss_env = L.envelope_loss(y, y_g, cfg) if hv.envelope_loss else zero
         loss_dyn = L.dynamic_loss(y, y_g, cfg) if hv.dynamic_loss else zero
-        loss_sm = L.strip_mirror_loss(y_g) if hv.strip_mirror_loss else zero
+        loss_sm = L.strip_mirror_loss(y_g, state.shard) if hv.strip_mirror_loss else zero
         (sr, sg, fsr, fsg), (pr, pg, fpr, fpg), (tr, tg, ftr, ftg) = _disc_forward(
             cfg, disc, y, y_g, sp_r, sp_g)
         loss_fm_s = L.feature_loss(fsr, fsg)
@@ -200,7 +217,8 @@ def generator_phase(cfg: Config, state: GANState, y: torch.Tensor,
     finally:
         disc.requires_grad_(True)
     _guarded_update(state.gen_opt, g_total.detach(), learning_rate(
-        hv.learning_rate_g, hv.lr_decay, state.step, steps_per_epoch), hv.grad_clip_norm)
+        hv.learning_rate_g, hv.lr_decay, state.step, steps_per_epoch), hv.grad_clip_norm,
+        state.shard)
 
     return {'loss_gen_all': g_total, 'loss_gen_s': loss_gen_s,
             'loss_gen_p': loss_gen_p, 'loss_gen_t': loss_gen_t,
@@ -214,13 +232,19 @@ def gan_train_step(cfg: Config, state: GANState, batch: Batch, noise,
     """One GAN step in place: the generator forward, the discriminator
     phase on its detached output, the generator phase.  Returns ``(state,
     metrics)`` with the JAX step's metric keys.  ``noise``: a
-    ``torch.Generator`` on the batch's device, or the generator's noise
-    tensors in call order."""
+    ``torch.Generator`` on the batch's device (drawn at the global batch's
+    shape under ``state.shard``), or this rank's noise tensors in call
+    order."""
     y = batch['wav']
+    if isinstance(noise, torch.Generator) and state.shard is not None:
+        gen, shard = noise, state.shard
+        noise = lambda shape, device: shard_draw(           # noqa: E731
+            lambda s: torch.rand(s, generator=gen, device=device), shape, shard)
     y_g = apply_generator(cfg, state.generator, batch, noise)
     d_aux = discriminator_phase(cfg, state, y, y_g.detach(), steps_per_epoch)
     g_aux = generator_phase(cfg, state, y, y_g, steps_per_epoch)
-    metrics = {k: v.detach() for k, v in {**d_aux, **g_aux}.items()}
+    metrics = mean_over_ranks({k: v.detach() for k, v in {**d_aux, **g_aux}.items()},
+                              state.shard)
     metrics['loss_disc_all'] = (metrics['loss_disc_s'] + metrics['loss_disc_p']
                                 + metrics['loss_disc_t'])
     state.step += 1

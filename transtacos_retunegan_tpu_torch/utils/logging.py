@@ -12,8 +12,11 @@ import time
 from typing import Optional
 
 
-def get_logger(name: str, log_path: Optional[str] = None) -> logging.Logger:
-    """Dual stdout+file logger (reference ``transtacos/utils.py:14-38``).
+def get_logger(name: str, log_path: Optional[str] = None,
+               primary: bool = True) -> logging.Logger:
+    """Dual stdout+file logger (reference ``transtacos/utils.py:14-38``);
+    with ``primary`` False (a data-parallel rank other than 0) it writes
+    nothing.
 
     ``logging`` caches loggers by name, so a second training run in the same
     process (tests, notebooks) would otherwise silently keep writing to the
@@ -22,6 +25,13 @@ def get_logger(name: str, log_path: Optional[str] = None) -> logging.Logger:
     logger = logging.getLogger(name)
     logger.setLevel(logging.INFO)
     logger.propagate = False
+    if not primary:
+        # under data parallelism only rank 0 writes the run's log
+        for h in list(logger.handlers):
+            logger.removeHandler(h)
+            h.close()
+        logger.addHandler(logging.NullHandler())
+        return logger
     fmt = logging.Formatter('%(asctime)s %(message)s', '%H:%M:%S')
     if not any(isinstance(h, logging.StreamHandler)
                and not isinstance(h, logging.FileHandler)
