@@ -95,6 +95,21 @@ exit:
    card): with the launch counters at 0, cohorts of 8 texts, one
    ``decode_full`` launch per replica, bit for bit as one replica at 4
    rows, and the cohort's time against one replica at 8 rows.
+10. The host side and the vocoder tools at the default ``Config()``: the
+   native Griffin-Lim library (``data/native.py``) built on this machine
+   from ``native/ttsdsp.cpp``, templates with it and with numpy on 1 and 4
+   threads, and the vocoder loader's first epoch with each (``num_workers``
+   1 and 4); a seeded RefineGAN_small
+   checkpoint in the reference RetuneGAN's layout imported
+   (``tools/import_reference_ckpt.py``) and served by
+   ``Synthesizer(devices=['cuda'])`` with the launch counters at 0 (one
+   10-syllable request through ``decode_full``), bit for bit as the same
+   weights loaded with ``from_flax``; ``serve/infer_vocoder.py``'s CLI over
+   a folder of 3 mags and 2 wavs on the card against the CPU (``INFER_TOL``);
+   ``train_acoustic --device_data`` (``data/device_data.py``) against the
+   streaming feeder: its batches (float16 store, ``STORE_TOL``), step time,
+   host-to-device bytes per step and the corpus's bytes on the card; a
+   closed-loop ``tools/serving_latency.py`` load.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
@@ -103,15 +118,18 @@ before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import io
 import json
 import math
+import os
 import subprocess
 import sys
 import threading
 import time
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -2211,6 +2229,263 @@ def data_parallel(fd, synth, card: str, device):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the host side and the vocoder tools
+# ---------------------------------------------------------------------------
+
+# The loader's first epoch on LOADER_UTTS tone utterances of 1-4 s (four
+# batches of 16: the loader's workers take whole batches, so that up to
+# four run at once); the reference checkpoint's request (10 syllables); the
+# vocoder CLI's card against CPU (float32, TF32 off: the generator's sums
+# in other orders); the resident corpus's batches against the feeder's
+# (its float16 store, relative to each array's largest value); the
+# acoustic step timed over DD_STEPS steps of each data path; the
+# closed-loop load of LATENCY_CONC workers for LATENCY_S seconds.
+LOADER_UTTS, LOADER_WORKERS, TEMPLATE_FRAMES = 64, (1, 4), 300
+INFER_TOL, STORE_TOL = 1e-3, 2e-3
+DD_UTTS, DD_STEPS = 48, 6
+LATENCY_S, LATENCY_WARM, LATENCY_CONC = 20.0, 3.0, 8
+
+
+def native_loader(base: str):
+    """The native library's build (a fresh compile of its source), one
+    template with each engine, and the loader's first epoch (ms per batch of the
+    default B) with each engine and worker count."""
+    from transtacos_retunegan_tpu_torch.audio import features as F
+    from transtacos_retunegan_tpu_torch.audio import transforms as T
+    from transtacos_retunegan_tpu_torch.config import Config
+    from transtacos_retunegan_tpu_torch.data import native
+    from transtacos_retunegan_tpu_torch.data.vocoder_data import VocoderDataset, VocoderLoader
+    from transtacos_retunegan_tpu_torch.ops import build
+    from transtacos_retunegan_tpu_torch.tools.tone_corpus import write_corpus
+    native.lib()              # built at first use (phase 7's loader); timed afresh here
+    t0 = time.perf_counter()
+    subprocess.run([build.host_compiler(), *build.HOST_FLAGS, '-o', f'{base}-lib.so',
+                    str(native.SOURCE)], check=True)
+    t_build = time.perf_counter() - t0
+    cfg = Config()
+    au, bs = cfg.audio, cfg.vocoder.batch_size
+    write_corpus(base, au, LOADER_UTTS, 5, seed=SEED + 10)
+    y = F.load_wav(f'{base}/wavs/tone0000.wav', au)
+    log_mag = T.get_mag(np.resize(y, TEMPLATE_FRAMES * au.hop_length - 1), au)
+    per_call = {}
+    for engine in ('native', 'numpy'):
+        for threads in LOADER_WORKERS:
+            with ThreadPoolExecutor(threads) as pool:
+                t0 = time.perf_counter()
+                list(pool.map(lambda _: T.inv_log_mag(log_mag, au, engine=engine), range(8)))
+            per_call[(engine, threads)] = 1e3 * (time.perf_counter() - t0) / 8
+    log(f'  native library built from {native.SOURCE.name} in {t_build:.1f} s '
+        f'({build.host_compiler()} {" ".join(build.HOST_FLAGS)}); {TEMPLATE_FRAMES}-frame '
+        f'templates, ms each over 8 on a pool of 1 and of {LOADER_WORKERS[-1]} threads: '
+        + '; '.join(f'{e} x{w}: {ms:.1f}' for (e, w), ms in per_call.items()))
+    out = {}
+    for engine in ('native', 'numpy'):
+        for workers in LOADER_WORKERS:
+            loader = VocoderLoader(VocoderDataset('train', base, cfg, engine=engine), bs,
+                                   num_workers=workers)
+            t0 = time.perf_counter()
+            n = len(list(loader))
+            out[(engine, workers)] = 1e3 * (time.perf_counter() - t0) / n
+    log(f'  vocoder loader, first epoch ({LOADER_UTTS} utterances of 1-4 s, {n} batches, '
+        f'{os.cpu_count()} CPUs), ms per batch of {bs}: '
+        + '; '.join(f'{e} x{w}: {ms:.1f}' for (e, w), ms in out.items()))
+    return out
+
+
+def imported_serving(fd, device, base: str):
+    """A seeded reference-layout RefineGAN_small checkpoint, imported and
+    served; returns the launches and the imported run dir."""
+    from transtacos_retunegan_tpu_torch import interop
+    from transtacos_retunegan_tpu_torch.config import Config
+    from transtacos_retunegan_tpu_torch.models.generators import make_generator
+    from transtacos_retunegan_tpu_torch.serve.pipeline import Synthesizer
+    from transtacos_retunegan_tpu_torch.tools.import_reference_ckpt import import_run
+    from transtacos_retunegan_tpu_torch.train.checkpoint import load_generator_params
+    cfg = Config()
+    with torch.device('meta'):
+        shapes = make_generator(cfg)
+    sd = interop.seeded_state_dict(shapes, interop.map_refinegan_small(), SEED)
+    os.makedirs(f'{base}/reference')
+    torch.save({'generator': sd}, f'{base}/reference/g_00400000')
+    t0 = time.perf_counter()
+    g_path = import_run(f'{base}/reference/g_00400000', f'{base}/imported', cfg=cfg)
+    t_import = time.perf_counter() - t0
+    served = Synthesizer(cfg, gen_params=load_generator_params(f'{base}/imported'),
+                         devices=[device])
+    direct = Synthesizer(cfg, gen_params=interop.import_generator_state_dict(
+        sd, 'RefineGAN_small'), devices=[device])
+    direct.tts_fused(REQUESTS[0])
+    served.tts_fused(REQUESTS[0])
+    for k in fd.LAUNCHES:
+        fd.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    wav = served.tts_fused(REQUESTS[1])
+    ms = 1e3 * (time.perf_counter() - t0)
+    launches = dict(fd.LAUNCHES)
+    ref = direct.tts_fused(REQUESTS[1])
+    same = wav.shape == ref.shape and np.array_equal(wav, ref)
+    log(f'  reference-layout checkpoint imported in {t_import:.1f} s ({g_path}); served '
+        f'tts_fused({REQUESTS[1]!r}): {ms:.1f} ms, {len(wav)} samples, launches {launches}; '
+        f'bit for bit as from_flax: {same}')
+    if not (same and launches['decode_full'] == 1 and np.isfinite(wav).all() and len(wav)):
+        raise AssertionError('the imported checkpoint did not serve as its weights do')
+    return launches, f'{base}/imported'
+
+
+def infer_vocoder_cli(run: str, corpus: str, base: str, device):
+    """``infer_vocoder``'s CLI over 3 mags and 2 wavs, on the card (twice:
+    the first run builds cuDNN's plans) and on the CPU."""
+    from transtacos_retunegan_tpu_torch.audio import features as F
+    from transtacos_retunegan_tpu_torch.audio import transforms as T
+    from transtacos_retunegan_tpu_torch.config import Config
+    from transtacos_retunegan_tpu_torch.serve import infer_vocoder
+    au = Config().audio
+    os.makedirs(f'{base}/in')
+    for i in range(5):
+        y = F.load_wav(f'{corpus}/wavs/tone{i:04d}.wav', au)
+        if i < 3:             # the acoustic preprocessor's mag-*.npy
+            y = F.align_wav(F.trim_silence(y, au), au.hop_length)
+            np.save(f'{base}/in/mag-{i}.npy', T.get_specs(y[:-1], au)[0])
+        else:
+            F.save_wav(y, f'{base}/in/utt{i}.wav', au)
+    secs = {}
+    for out, dev in (('cold', str(device)), ('card', str(device)), ('cpu', 'cpu')):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            infer_vocoder.main(['--run_dir', run, '--input_dir', f'{base}/in',
+                                '--output_dir', f'{base}/{out}', '--device', dev])
+        secs[out] = (time.perf_counter() - t0) / 5
+    worst, audio = 0.0, 0.0
+    for f in sorted(os.listdir(f'{base}/card')):
+        a, b = F.load_wav(f'{base}/card/{f}', au), F.load_wav(f'{base}/cpu/{f}', au)
+        worst = max(worst, float(np.abs(a - b).max()) if a.shape == b.shape else np.inf)
+        audio += len(a) / au.sample_rate
+    log(f'  infer_vocoder CLI, 3 mags + 2 wavs ({audio:.1f} s of audio): s per file on the '
+        f'card {secs["cold"]:.3f} (first run), {secs["card"]:.3f} (second), on the CPU '
+        f'{secs["cpu"]:.3f}; card against CPU max|diff| {worst:.2e} (tolerance {INFER_TOL:g})')
+    if not worst <= INFER_TOL:
+        raise AssertionError('infer_vocoder on the card disagrees with the CPU')
+
+
+def _batch_errors(got, ref):
+    """Largest error of the gathered batch against the feeder's on the
+    feeder's extent, relative to each array's largest value; whether the
+    loss lengths are equal."""
+    worst = 0.0
+    for k, b in ref.items():
+        if b.ndim == 0:
+            continue
+        a = got[k].float().cpu().numpy()[tuple(slice(0, n) for n in b.shape)]
+        worst = max(worst, float(np.abs(a - b).max()) / max(1.0, float(np.abs(b).max())))
+    lens = all(int(got[k]) == int(ref[k]) for k in ('frame_loss_len', 'text_loss_len'))
+    return worst, lens
+
+
+def acoustic_data_paths(device, base: str):
+    """``train_acoustic`` with ``--device_data`` and with the streaming
+    feeder: batches, bytes and step times."""
+    from transtacos_retunegan_tpu_torch.config import Config
+    from transtacos_retunegan_tpu_torch.data.device_data import DeviceResidentData
+    from transtacos_retunegan_tpu_torch.data.feeder import AcousticDataset, prepare_batch
+    from transtacos_retunegan_tpu_torch.tools.synth_corpus import build_corpus
+    from transtacos_retunegan_tpu_torch.train import train_acoustic as ta
+    cfg = Config()
+    bs = cfg.acoustic.batch_size
+    data_dir = build_corpus(f'{base}/corpus', cfg, n_utts=DD_UTTS, seed=SEED, num_workers=4,
+                            min_syl=SYLLABLES[0], max_syl=SYLLABLES[1])
+    ds = AcousticDataset(data_dir, cfg)
+    t0 = time.perf_counter()
+    dd = DeviceResidentData(ds, cfg, device)
+    torch.cuda.synchronize()
+    t_up = time.perf_counter() - t0
+    plan = dd.plan(seed=cfg.audio.randseed)
+    worst, lens, wire, frames = 0.0, True, [], []
+    for _ in range(3):
+        idx = next(plan)
+        ref = prepare_batch([ds.load(int(i)) for i in idx], cfg)
+        w, ok = _batch_errors(dd.gather(idx), ref)
+        worst, lens = max(worst, w), lens and ok
+        wire.append(sum(v.nbytes for v in ref.values()))
+        frames.append(ref['mel_targets'].shape[1])
+    log(f'  resident corpus: {dd.n} utterances, T{dd.t_pad} x N{dd.n_pad}, '
+        f'{dd.nbytes() / 2 ** 20:.1f} MiB on the card, uploaded in {t_up:.2f} s; host-to-device '
+        f'bytes per step: {4 * bs} (indices) against {np.median(wire):.0f} (the feeder\'s '
+        f'float32 batch); the feeder pads the same batches to T {frames}, the resident '
+        f'corpus to T{dd.t_pad}; gathered batches against the feeder\'s: worst {worst:.2e} of an '
+        f'array\'s largest value (tolerance {STORE_TOL:g}), loss lengths equal: {lens}')
+    if not (worst <= STORE_TOL and lens):
+        raise AssertionError('the resident corpus gathered other batches than the feeder')
+
+    real = {'train_step': ta.train_step, 'train_step_hoisted': ta.train_step_hoisted}
+    marks = []
+
+    def timed(name):
+        def step(*args):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            return real[name](*args)
+        return step
+
+    argv = ['--data_dir', data_dir, '--log_path', '', '--log_interval', str(DD_STEPS),
+            '--summary_interval', '100000', '--checkpoint_interval', '100000',
+            '--max_steps', str(DD_STEPS), '--device', device.type]
+    ms = {}
+    for name in real:
+        setattr(ta, name, timed(name))
+    try:
+        for i, extra in enumerate(([], ['--device_data'])):
+            marks.clear()
+            argv[3] = f'{base}/run{i}'
+            with contextlib.redirect_stdout(io.StringIO()):
+                ta.main(argv + extra)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            gaps = 1e3 * np.diff(marks)[2:]
+            ms.setdefault('device_data' if extra else 'streaming', []).append(
+                float(np.median(gaps)))
+    finally:
+        for name, fn in real.items():
+            setattr(ta, name, fn)
+    log(f'  acoustic step with its data path, ms (median of steps 3-{DD_STEPS}, host clock '
+        f'from one step\'s start to the next\'s; the streaming run first): streaming '
+        f'{ms["streaming"][0]:.1f}, --device_data {ms["device_data"][0]:.1f}')
+    return ms
+
+
+def host_side(fd, synth, device):
+    """Phase 10; returns the launches of the imported checkpoint's request."""
+    import tempfile
+    from transtacos_retunegan_tpu_torch.tools import serving_latency
+
+    def part(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f'  ({fn.__name__}: {time.perf_counter() - t0:.1f} s)')
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        part(native_loader, f'{tmp}/tones')
+        launches, run = part(imported_serving, fd, device, tmp)
+        part(infer_vocoder_cli, run, f'{tmp}/tones', f'{tmp}/infer', device)
+        part(acoustic_data_paths, device, f'{tmp}/acoustic')
+    t0 = time.perf_counter()
+    res = serving_latency.measure(synth, LATENCY_S, LATENCY_WARM, LATENCY_CONC)
+    st = res['steady_state']
+    if res['errors'] or not st:
+        raise AssertionError(f'serving_latency failed: {res["errors"] or "no request"}')
+    kinds = [o['kind'] for o in res.get('outliers_gt_3x_p50', [])]
+    log(f'  serving_latency: {LATENCY_CONC} workers vocoding 400-frame specs for '
+        f'{LATENCY_S:g} s through BatchingFrontend (max_batch 8, window 6 ms), '
+        f'{res["config"]["infer_dtype"]}: steady state (after {LATENCY_WARM:g} s) '
+        f'n={st["n"]}, p50 {st["p50_ms"]:.3f} / p95 {st["p95_ms"]:.3f} / p99 '
+        f'{st["p99_ms"]:.3f} / max {st["max_ms"]:.3f} ms, {res["qps_steady"]:.2f} requests '
+        f'per s; slow requests (> 3 p50): {len(kinds)} '
+        f'({kinds.count("global_stall")} global stalls); '
+        f'{time.perf_counter() - t0:.1f} s')
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -2282,6 +2557,14 @@ def main() -> int:
     log(f'  phase 9 took {time.perf_counter() - t0:.1f} s; the trainers launch none of the '
         f'kernels, the replicas {replicas}; LAUNCHES over the paths of phases 4, 5, 8 and 9: '
         f'{launches}')
+
+    log('== phase 10: host side and vocoder tools (native Griffin-Lim, reference checkpoint '
+        'import, infer_vocoder, --device_data, serving_latency)')
+    t0 = time.perf_counter()
+    imported = host_side(fd, synth, device)
+    launches = {k: launches[k] + imported.get(k, 0) for k in launches}
+    log(f'  phase 10 took {time.perf_counter() - t0:.1f} s; the imported checkpoint\'s request '
+        f'{imported}; LAUNCHES over the paths of phases 4, 5, 8, 9 and 10: {launches}')
 
     sources = {'decode_step': 'fused_decoder.cu', 'decode_full': 'fused_decoder.cu',
                'lsa_step': 'lsa_step.cu'}

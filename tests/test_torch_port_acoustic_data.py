@@ -262,11 +262,14 @@ def test_cli_exits_1_when_the_loss_explodes(corpus, tmp_path, monkeypatch):
     pytest.param(['--model_parallel', '2'], 'queue 1.7b', id='flag1-queue 1.7'),
     pytest.param(['--coordinator', 'localhost:1234'], '--num_processes',
                  id='flag2-queue 1.7'),
-    pytest.param(['--device_data'], 'queue 1.8', id='flag3-queue 1.8')])
+    pytest.param(['--device_data', '--coordinator', 'localhost:1234', '--num_processes', '2',
+                  '--process_id', '0'], 'single-host', id='flag3-queue 1.8')])
 def test_cli_refuses_what_is_not_ported(corpus, tmp_path, flag, pointer):
-    """Tensor parallelism and the device-resident corpus are not ported;
-    data parallelism is, but not over more cards than the machine has
-    (none here), nor with a coordinator and no rank."""
+    """Tensor parallelism is not ported; data parallelism is, but not over
+    more cards than the machine has (none here), nor with a coordinator
+    and no rank; the device-resident corpus (queue 1.8) is, but not for a
+    run whose ranks may be on other hosts, as the JAX package refuses
+    multi-host runs."""
     with pytest.raises(SystemExit, match=pointer):
         ta.train(_args(corpus, tmp_path / 'run', tmp_path, *flag))
     assert not (tmp_path / 'run').exists()

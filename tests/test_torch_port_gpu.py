@@ -571,3 +571,74 @@ def test_nccl_world_size_one_is_the_step_without_a_group(cuda):
         finally:
             dist.destroy_process_group()
     assert same(got, ref)
+
+
+# ---------------------------------------------------------------------------
+# the host side: native Griffin-Lim, reference checkpoints, the resident corpus
+# ---------------------------------------------------------------------------
+
+def test_native_loader_feeds_the_card(cuda, tmp_path):
+    """The native library builds on this machine from ``native/ttsdsp.cpp``
+    and the vocoder loader's first epoch (the default engine) gives the
+    card batches whose templates are the native ones."""
+    from transtacos_retunegan_tpu_torch.audio import transforms as T
+    from transtacos_retunegan_tpu_torch.data import native
+    from transtacos_retunegan_tpu_torch.data.vocoder_data import VocoderDataset, VocoderLoader
+    from transtacos_retunegan_tpu_torch.tools.tone_corpus import write_corpus
+    from transtacos_retunegan_tpu_torch.train.train_vocoder import device_batches
+    native.lib()
+    cfg = _vocoder_cfg()
+    write_corpus(str(tmp_path / 'corpus'), cfg.audio, 4, 1, seed=0, min_s=0.3, max_s=1.0)
+    ds = VocoderDataset('train', str(tmp_path / 'corpus'), cfg)
+    batches = list(device_batches(VocoderLoader(ds, 2, num_workers=2), cuda))
+    assert len(batches) == 2 and all(b['tmpl'].device.type == cuda.type for b in batches)
+    for _, wav, tmpl in ds.cache:                   # the items the epoch built
+        want = T.inv_log_mag(T.get_mag(wav[:-1], cfg.audio), cfg.audio, length=len(wav) - 1)
+        np.testing.assert_array_equal(tmpl[:-1], want)
+
+
+def test_imported_checkpoint_serves_on_the_card(cuda, tmp_path):
+    """A seeded reference-layout RefineGAN_small checkpoint, imported, serves
+    ``tts_fused`` through ``decode_full``; its wav equals that of the same
+    weights loaded with ``from_flax``, bit for bit."""
+    from transtacos_retunegan_tpu_torch import interop
+    from transtacos_retunegan_tpu_torch.models.generators import make_generator
+    from transtacos_retunegan_tpu_torch.serve.pipeline import Synthesizer
+    from transtacos_retunegan_tpu_torch.tools.import_reference_ckpt import import_run
+    from transtacos_retunegan_tpu_torch.train.checkpoint import load_generator_params
+    cfg = _small_cfg()
+    sd = interop.seeded_state_dict(make_generator(cfg), interop.map_refinegan_small(), 5)
+    torch.save({'generator': sd}, tmp_path / 'g_00000100')
+    import_run(str(tmp_path / 'g_00000100'), str(tmp_path / 'run'), cfg=cfg)
+    wavs = []
+    for gen_params in (load_generator_params(str(tmp_path / 'run')),
+                       interop.import_generator_state_dict(sd, 'RefineGAN_small')):
+        before = fd.LAUNCHES['decode_full']
+        wavs.append(Synthesizer(cfg, gen_params=gen_params, devices=[cuda]).tts_fused('ni3 hao3'))
+        assert fd.LAUNCHES['decode_full'] == before + 1
+    assert np.isfinite(wavs[0]).all() and len(wavs[0]) > 0
+    np.testing.assert_array_equal(wavs[0], wavs[1])
+
+
+def test_device_data_on_the_card(cuda, tmp_path):
+    """The resident corpus gathers on the card the CPU's batches bit for
+    bit, and ``train_acoustic --device_data`` takes 2 steps there."""
+    from transtacos_retunegan_tpu_torch.data.device_data import DeviceResidentData
+    from transtacos_retunegan_tpu_torch.data.feeder import AcousticDataset
+    from transtacos_retunegan_tpu_torch.tools.synth_corpus import build_corpus
+    from transtacos_retunegan_tpu_torch.train import train_acoustic
+    cfg = _acoustic_cfg()
+    data_dir = build_corpus(str(tmp_path / 'corpus'), cfg, n_utts=12, seed=0, num_workers=1)
+    ds = AcousticDataset(data_dir, cfg)
+    on_card, on_cpu = DeviceResidentData(ds, cfg, cuda), DeviceResidentData(ds, cfg, 'cpu')
+    idx = next(on_card.plan(seed=1))
+    got, ref = on_card.gather(idx), on_cpu.gather(idx)
+    for k, v in ref.items():
+        assert got[k].device.type == cuda.type and torch.equal(got[k].cpu(), v), k
+    train_acoustic.main(['--data_dir', data_dir, '--log_path', str(tmp_path / 'run'),
+                         '--config', cfg.save(str(tmp_path / 'cfg')), '--device_data',
+                         '--device', cuda.type,
+                         '--max_steps', '2', '--log_interval', '1',
+                         '--checkpoint_interval', '2', '--summary_interval', '100'])
+    log = (tmp_path / 'run' / 'train.log').read_text()
+    assert 'device-resident corpus' in log and 'training complete at step 2' in log

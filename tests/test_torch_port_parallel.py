@@ -29,6 +29,7 @@ needs it).
 
 import dataclasses
 import json
+import os
 import pickle
 import threading
 import urllib.request
@@ -450,6 +451,35 @@ def test_train_acoustic_on_two_processes(group, npy_corpus, tmp_path):
     assert 'data parallel over 2 processes, 2 rows each' in log
     assert log.count('step 2 [') == 1 and 'training complete at step 2' in log
     assert torch.load(tmp_path / 'run' / 'ckpt_00000002', map_location='cpu')['step'] == 2
+
+
+def test_device_data_blocks_on_two_processes(group, npy_corpus, tmp_path):
+    """One block of the device-resident corpus per rank (23 utterances:
+    the last block wraps): each rank's loss lengths are the maxima over
+    the ranks, JAX's global ones on a 2-device mesh; then ``train_acoustic
+    --device_data`` takes 2 steps on the two ranks."""
+    from jax.sharding import Mesh
+    from transtacos_retunegan_tpu.data.device_data import MeshDeviceResidentData
+    pcfg, jcfg = (small_cfg(c, batch_size=4, frame_bucket=40) for c in (PortConfig, JaxConfig))
+    rows = open(f'{npy_corpus}/train.txt', encoding='utf-8').read().split('\n')[:23]
+    (tmp_path / 'odd.txt').write_text('\n'.join(rows), encoding='utf-8')
+    for f in os.listdir(npy_corpus):
+        if f.endswith('.npy'):
+            os.symlink(os.path.join(npy_corpus, f), tmp_path / f)
+    got = group.run(DP.device_data_lengths, pcfg, str(tmp_path), 'odd', 3)
+    mesh = Mesh(np.array(jax.devices()[:2]).reshape(2, 1), ('data', 'model'))
+    ref = MeshDeviceResidentData(JD.AcousticDataset(str(tmp_path), jcfg, 'odd'), jcfg, mesh)
+    plan = ref.plan(seed=7)
+    want = [(int(b['frame_loss_len']), int(b['text_loss_len']))
+            for b in (ref.gather(next(plan)) for _ in range(3))]
+    assert got == [want, want]
+    group.run(DP.cli, 'train.train_acoustic', [
+        '--data_dir', npy_corpus, '--log_path', str(tmp_path / 'run'),
+        '--config', pcfg.save(str(tmp_path / 'cfg')), '--device', 'cpu', '--num_devices', '2',
+        '--device_data', '--max_steps', '2', '--log_interval', '1',
+        '--checkpoint_interval', '100', '--summary_interval', '100'])
+    log = (tmp_path / 'run' / 'train.log').read_text()
+    assert 'block 0 of 2' in log and 'training complete at step 2' in log
 
 
 def test_train_vocoder_on_two_processes(group, tmp_path):

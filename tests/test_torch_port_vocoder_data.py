@@ -6,8 +6,9 @@ numpy code and seeds on both sides) on a small synthetic corpus from
 finetune mode (``mag-*.npy`` features, the template's disk cache) and the
 Split u/v masks, over two passes (the second crops again).  Each package
 reads its own copy of the index directory, so neither reads a template
-the other cached; the JAX side takes its numpy Griffin-Lim path, the only
-one the port has.  ``VocoderLoader`` batches equal the JAX loader's, and a
+the other cached; both take the numpy Griffin-Lim engine (the port's
+``engine='numpy'``; ``tests/test_torch_port_native.py`` holds the native
+engine to the JAX package).  ``VocoderLoader`` batches equal the JAX loader's, and a
 worker's error surfaces in the consumer.  ``train_vocoder`` runs 2 steps
 at a tiny configuration, checkpoints, resumes, exits 75 over its host
 memory limit, refuses more devices than the machine has and defaults to
@@ -79,7 +80,8 @@ def test_features_and_transforms_bit_identical(corpus, tmp_path, monkeypatch):
         (pT.mag_to_mel(np.exp(log_mag), pa), jT.mag_to_mel(np.exp(log_mag), ja)),
         (pT.spec_to_natural_scale(log_mag / 10, pa), jT.spec_to_natural_scale(log_mag / 10, ja)),
         (pT.get_specs(y, pa)[0], jT.get_specs(y, ja)[0]),
-        (pT.inv_log_mag(log_mag, pa, length=len(y)), jT.inv_log_mag(log_mag, ja, length=len(y))),
+        (pT.inv_log_mag(log_mag, pa, length=len(y), engine='numpy'),
+         jT.inv_log_mag(log_mag, ja, length=len(y))),
     ]
     # seeds that open and close each gate: 1 none, 4 pitch and gain, 6 pitch
     # only, 10 pitch by 0 semitones, 23 tempo only, 32 all three
@@ -118,7 +120,8 @@ def test_dataset_items_bit_identical(corpus, tmp_path, monkeypatch, mode, split,
     jcfg, pcfg = _cfgs(ver)
     finetune = mode == 'finetune'
     jds = jvd.VocoderDataset(split, _copy(corpus, tmp_path / 'jax'), jcfg, finetune=finetune)
-    pds = pvd.VocoderDataset(split, _copy(corpus, tmp_path / 'port'), pcfg, finetune=finetune)
+    pds = pvd.VocoderDataset(split, _copy(corpus, tmp_path / 'port'), pcfg, finetune=finetune,
+                             engine='numpy')
     assert len(pds) == len(jds) == (N_TRAIN if split == 'train' else N_TEST)
     for _ in range(2):
         for i in range(len(pds)):
@@ -131,9 +134,9 @@ def test_dataset_items_bit_identical(corpus, tmp_path, monkeypatch, mode, split,
         cached = sorted(f for f in os.listdir(tmp_path / 'port') if f.startswith('tmpl'))
         assert len(cached) == len(pds)
         again = pvd.VocoderDataset(split, str(tmp_path / 'port'), pcfg, finetune=True,
-                                   train=False)
+                                   train=False, engine='numpy')
         fresh = pvd.VocoderDataset(split, _copy(corpus, tmp_path / 'fresh'), pcfg,
-                                   finetune=True, train=False)
+                                   finetune=True, train=False, engine='numpy')
         np.testing.assert_array_equal(again[0]['tmpl'], fresh[0]['tmpl'])
 
 
@@ -142,7 +145,8 @@ def test_loader_batches_match(corpus, tmp_path, monkeypatch):
     jcfg, pcfg = _cfgs()
     jl = jvd.VocoderLoader(jvd.VocoderDataset('train', _copy(corpus, tmp_path / 'j'), jcfg),
                            2, num_workers=1, seed=5, num_shards=1)
-    pl = pvd.VocoderLoader(pvd.VocoderDataset('train', _copy(corpus, tmp_path / 'p'), pcfg),
+    pl = pvd.VocoderLoader(pvd.VocoderDataset('train', _copy(corpus, tmp_path / 'p'), pcfg,
+                                              engine='numpy'),
                            2, num_workers=1, seed=5)
     jb, pb = list(jl), list(pl)
     assert len(pb) == len(jb) == len(pl) == N_TRAIN // 2

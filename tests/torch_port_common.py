@@ -379,3 +379,12 @@ def acoustic_interceptor(next_fun, args, kwargs, context):
         (c, a, _), ys = next_fun((carry, attn, jnp.where(coin < tfr, 2.0, -1.0)), xs)
         return (c, a, tfr), ys
     return next_fun(*args, **kwargs)
+
+
+
+def reference_state_dict(module, mapping, seed: int):
+    """A seeded state dict in the reference RetuneGAN's torch layout for an
+    ``interop`` layer map, built from the map entries on the shapes of the
+    port's ``module`` (``interop.seeded_state_dict``)."""
+    from transtacos_retunegan_tpu_torch.interop import seeded_state_dict
+    return seeded_state_dict(module, mapping, seed)

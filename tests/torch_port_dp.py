@@ -80,7 +80,8 @@ class Group:
 def _serve(r, n, port, inq, outq):
     torch.set_num_threads(1)
     # as a launcher sets them: the trainers join this group
-    os.environ.update(RANK=str(r), WORLD_SIZE=str(n), LOCAL_RANK=str(r))
+    os.environ.update(RANK=str(r), WORLD_SIZE=str(n), LOCAL_RANK=str(r),
+                      LOCAL_WORLD_SIZE=str(n))
     dist.init_process_group('gloo', init_method=f'tcp://127.0.0.1:{port}', world_size=n,
                             rank=r, timeout=datetime.timedelta(seconds=JOB_TIMEOUT_S / 2))
     try:
@@ -107,6 +108,19 @@ def shard_defaults():
     from transtacos_retunegan_tpu_torch.config import Config
     f = DataFeeder([None] * 8, Config())
     return f._pc, f._pidx, VocoderLoader([None] * 8, 4).bs
+
+
+def device_data_lengths(pcfg, data_dir, split, n):
+    """The loss lengths of this rank's first ``n`` planned batches of its
+    block of the device-resident corpus (maxima over the ranks)."""
+    from transtacos_retunegan_tpu_torch.data.device_data import (DevicePump,
+                                                                  ShardedDeviceResidentData)
+    from transtacos_retunegan_tpu_torch.data.feeder import AcousticDataset
+    dd = ShardedDeviceResidentData(AcousticDataset(data_dir, pcfg, split), pcfg,
+                                   current_shard(), 'cpu')
+    pump = DevicePump(dd, seed=7)
+    return [(int(b['frame_loss_len']), int(b['text_loss_len']))
+            for b in (pump.get_batch() for _ in range(n))]
 
 
 def smoke(argv):
@@ -224,8 +238,8 @@ def checkpoint_round(pcfg, tree, batch, run_dir):
     differently and take one step; what each rank wrote, the restored step
     and the parameters after the step."""
     writes = []
-    save = ckpt._save
-    ckpt._save = lambda path, obj: (writes.append(path), save(path, obj))
+    save = ckpt.save_file
+    ckpt.save_file = lambda path, obj: (writes.append(path), save(path, obj))
     try:
         model = weights.load_flax(Tacotron(pcfg), tree)
         state = A.TrainState(7, model, A.make_optimizer(pcfg, model), current_shard())
@@ -235,7 +249,7 @@ def checkpoint_round(pcfg, tree, batch, run_dir):
         gst.step = 5
         ckpt.save_gan(run_dir, gst, epoch=1)
     finally:
-        ckpt._save = save
+        ckpt.save_file = save
     fresh = A.init_state(pcfg, 1000 + rank(), 'cpu', current_shard())
     ckpt.restore_acoustic(run_dir, fresh)
     restored_equal = all(torch.equal(p, q) for p, q in zip(fresh.model.parameters(),

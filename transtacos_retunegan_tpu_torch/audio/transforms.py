@@ -1,10 +1,9 @@
 """Host-side (numpy) composite transforms, ported from
 ``transtacos_retunegan_tpu/audio/transforms.py`` (the same code): linear
 and mel spectrograms, the natural-scale conversions, numpy Griffin-Lim and
-the vocoder's Griffin-Lim template (``inv_log_mag``).  The JAX package's
-``inv_log_mag`` uses its native C++ library when that is built; the port
-has no binding to it yet and always takes the numpy path, which is what
-the JAX package computes without the library.
+the vocoder's Griffin-Lim template (``inv_log_mag``), which runs on the
+native C++ library (``data/native.py``) unless the caller asks for the
+numpy engine.
 """
 
 from __future__ import annotations
@@ -17,6 +16,9 @@ from scipy import signal as sps
 from . import mel as melmod
 from .features import stft_np
 from ..config import AudioConfig
+from ..data import native
+
+ENGINES = ('native', 'numpy')
 
 EPS_AMP = 1e-5
 
@@ -139,14 +141,22 @@ def get_mel(y: np.ndarray, cfg: AudioConfig, clamp_low: bool = True) -> np.ndarr
 
 
 def inv_log_mag(log_mag: np.ndarray, cfg: AudioConfig,
-                length: Optional[int] = None) -> np.ndarray:
+                length: Optional[int] = None, engine: str = 'native') -> np.ndarray:
     """log-magnitude [F or F-1, T] -> waveform via fast momentum GL
-    (the vocoder's Griffin-Lim reference template)."""
-    s = np.exp(log_mag)
-    if s.shape[0] == cfg.n_freq - 1:
-        s = np.concatenate([np.zeros([1, s.shape[1]]), s], axis=0)
-    y = griffin_lim(s ** cfg.gl_power, cfg.gl_iters_vocoder, cfg,
-                    momentum=cfg.gl_momentum, length=length)
+    (the vocoder's Griffin-Lim reference template).  ``engine``: 'native'
+    (``data/native.py``, built at first use; a failed build raises) or
+    'numpy'.  The two draw their initial phases from different generators,
+    so their templates differ sample by sample."""
+    if engine == 'native':
+        y = native.inv_log_mag(log_mag, cfg, length=length)
+    elif engine == 'numpy':
+        s = np.exp(log_mag)
+        if s.shape[0] == cfg.n_freq - 1:
+            s = np.concatenate([np.zeros([1, s.shape[1]]), s], axis=0)
+        y = griffin_lim(s ** cfg.gl_power, cfg.gl_iters_vocoder, cfg,
+                        momentum=cfg.gl_momentum, length=length)
+    else:
+        raise ValueError(f'engine {engine!r} not in {ENGINES}')
     if length and len(y) != length:
         raise ValueError(f'template of {len(y)} samples, expected {length}')
     return y

@@ -5,8 +5,11 @@ numpy code and seeds, so items are bit-identical to the JAX package's).
 Per-utterance full-length tuples are computed once and cached in RAM;
 scratch mode analyses (augmented) wavs directly, finetune mode consumes
 the acoustic preprocessor's ``mag-*.npy`` features denormalized to natural
-scale, with the template cached on disk beside them.  Train-time access
-returns random ``segment_size`` crops.  ``VocoderLoader`` is a threaded
+scale, with the template cached on disk beside them (a cache written by
+one Griffin-Lim engine is read by the other, as in the JAX package).  The
+template runs on the native library unless ``engine='numpy'`` is asked
+for (``audio.transforms.inv_log_mag``).  Train-time access returns random
+``segment_size`` crops.  ``VocoderLoader`` is a threaded
 shuffling batch loader; under data parallelism each rank takes a disjoint
 stride of the shared shuffled order and ``batch_size / world size``
 examples per batch.
@@ -31,8 +34,12 @@ from ..parallel import rank, world_size
 class VocoderDataset:
     def __init__(self, split: str, data_dir: str, cfg: Config,
                  finetune: bool = False, limit: Optional[int] = None,
-                 seed: int = 114514, train: Optional[bool] = None):
+                 seed: int = 114514, train: Optional[bool] = None,
+                 engine: str = 'native'):
+        if engine not in T.ENGINES:
+            raise ValueError(f'engine {engine!r} not in {T.ENGINES}')
         self.cfg = cfg
+        self.engine = engine
         # any non-test index (train.txt, vbank_*.txt voice banks) trains
         # with augmentation/crops; override with ``train=`` if needed
         self.is_train = train if train is not None else split != 'test'
@@ -98,7 +105,7 @@ class VocoderDataset:
             if len(wav_tmpl) != wavlen:
                 wav_tmpl = None                            # stale geometry
         if wav_tmpl is None:
-            wav_tmpl = T.inv_log_mag(mag, au, length=wavlen - 1)
+            wav_tmpl = T.inv_log_mag(mag, au, length=wavlen - 1, engine=self.engine)
             wav_tmpl = np.pad(wav_tmpl, (0, 1))
             if cache_fp:
                 tmp = f'{cache_fp}.{os.getpid()}.tmp.npy'
@@ -189,11 +196,16 @@ class VocoderLoader:
                  shuffle: bool = True, num_workers: int = 4,
                  queue_size: int = 8, drop_last: bool = True, seed: int = 1,
                  num_shards: Optional[int] = None,
-                 shard_index: Optional[int] = None):
+                 shard_index: Optional[int] = None, engine: Optional[str] = None):
         """``num_shards``/``shard_index``: this process's share of the data
         (a disjoint stride of the shuffled order and ``batch_size /
         num_shards`` examples per batch); the process group's size and rank
-        by default."""
+        by default.  ``engine``: the Griffin-Lim engine handed on to the
+        dataset (None keeps the dataset's own)."""
+        if engine is not None:
+            if engine not in T.ENGINES:
+                raise ValueError(f'engine {engine!r} not in {T.ENGINES}')
+            dataset.engine = engine
         self.ds = dataset
         self.bs = batch_size
         self.shuffle = shuffle

@@ -8,6 +8,12 @@ starts one ``nvcc`` per source at once and returns each build's
 ``-Xptxas -v`` report (registers, shared memory, spills per kernel).
 ``device_kind``, ``ptr`` and ``stream`` are what the wrappers hand the C
 interface.
+
+``load_host`` builds a host C++ library the same way with the host
+compiler (``$CXX``, else ``c++``) and ``HOST_FLAGS`` (those of
+``native/Makefile``): the native DSP library ``native/ttsdsp.cpp``, read in
+place.  Its key also covers the compiler and this CPU's feature flags,
+since ``-march=native`` code built on one host may not run on another.
 """
 
 from __future__ import annotations
@@ -15,8 +21,10 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable, List
 
@@ -28,8 +36,11 @@ BUILD = PKG / '_build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-Xptxas', '-v', '-shared', '-Xcompiler', '-fPIC')
 
+HOST_FLAGS = ('-O3', '-fPIC', '-shared', '-std=c++17', '-march=native', '-ffast-math')
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 REPORTS: Dict[str, str] = {}
+_HOST_LOCK = threading.Lock()
 
 
 def nvcc() -> str:
@@ -90,6 +101,50 @@ def load(name: str) -> ctypes.CDLL:
         _finish(name, out, job)
         _LIBS[name] = ctypes.CDLL(str(out))
     return _LIBS[name]
+
+
+def host_compiler() -> str:
+    return os.environ.get('CXX') or 'c++'
+
+
+def _cpu_tag() -> str:
+    """This CPU's feature flags (what ``-march=native`` compiles for)."""
+    try:
+        with open('/proc/cpuinfo') as fh:
+            flags = next((ln for ln in fh if ln.startswith(('flags', 'Features'))), '')
+    except OSError:
+        flags = ''
+    return platform.machine() + flags
+
+
+def host_lib_path(src: Path) -> Path:
+    key = (src.read_bytes() + ' '.join((host_compiler(),) + HOST_FLAGS).encode()
+           + _cpu_tag().encode())
+    return BUILD / f'lib{src.stem}_{hashlib.sha256(key).hexdigest()[:16]}.so'
+
+
+def load_host(src: Path) -> ctypes.CDLL:
+    """The loaded host library built from the C++ source ``src`` with the
+    host compiler and ``HOST_FLAGS``, built if needed; raises with the
+    compiler's output when the build fails."""
+    name = f'host:{src}'
+    with _HOST_LOCK:
+        if name not in _LIBS:
+            out = host_lib_path(src)
+            if not out.exists():
+                BUILD.mkdir(parents=True, exist_ok=True)
+                tmp = out.with_suffix(f'.{os.getpid()}.tmp')
+                cmd = [host_compiler(), *HOST_FLAGS, '-o', str(tmp), str(src)]
+                try:
+                    proc = subprocess.run(cmd, capture_output=True, text=True)
+                except OSError as e:
+                    raise RuntimeError(f'cannot run the host compiler for {src.name}: '
+                                       f'{e}') from e
+                if proc.returncode != 0:
+                    raise RuntimeError(f'{" ".join(cmd)} failed:\n{proc.stderr}')
+                os.replace(tmp, out)
+            _LIBS[name] = ctypes.CDLL(str(out))
+        return _LIBS[name]
 
 
 def device_kind(t: torch.Tensor) -> str:

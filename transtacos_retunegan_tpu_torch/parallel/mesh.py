@@ -149,6 +149,18 @@ def join_group(args, device) -> torch.device:
     return dev
 
 
+def single_host(args=None) -> bool:
+    """Whether every rank of the run is a process of this machine: not a
+    group joined through ``--coordinator`` (its ranks may be elsewhere),
+    and under a launcher its ``LOCAL_WORLD_SIZE`` equal to its
+    ``WORLD_SIZE``.  Known before the group is joined."""
+    if args is not None and getattr(args, 'coordinator', None) is not None:
+        return False
+    if 'WORLD_SIZE' in os.environ:
+        return os.environ.get('LOCAL_WORLD_SIZE') == os.environ['WORLD_SIZE']
+    return True
+
+
 def world_size() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 

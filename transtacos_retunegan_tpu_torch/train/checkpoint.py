@@ -49,7 +49,7 @@ def prune_old(dirpath: str, prefix: str, keep: int = 1) -> None:
             os.remove(full)
 
 
-def _save(path: str, obj) -> None:
+def save_file(path: str, obj) -> None:
     tmp = f'{path}.{os.getpid()}.tmp'
     torch.save(obj, tmp)
     os.replace(tmp, path)
@@ -68,10 +68,10 @@ def save_acoustic(run_dir: str, state, keep: int = 1) -> str:
     path = os.path.join(run_dir, f'ckpt_{state.step:08d}')
     if _writes(state):
         os.makedirs(run_dir, exist_ok=True)
-        _save(path, {'step': state.step,
-                     'params': {n: p.detach() for n, p in state.model.named_parameters()},
-                     'extra_vars': state.extra_vars,
-                     'opt_state': state.opt.state_dict()})
+        save_file(path, {'step': state.step,
+                         'params': {n: p.detach() for n, p in state.model.named_parameters()},
+                         'extra_vars': state.extra_vars,
+                         'opt_state': state.opt.state_dict()})
         prune_old(run_dir, 'ckpt_', keep)
     if state.shard is not None:
         barrier()
@@ -111,11 +111,11 @@ def save_gan(run_dir: str, state, epoch: int, keep: int = 2) -> Tuple[str, str]:
     do_path = os.path.join(run_dir, f'do_{state.step:08d}')
     if _writes(state):
         os.makedirs(run_dir, exist_ok=True)
-        _save(g_path, {'generator': state.generator.state_dict()})
-        _save(do_path, {'discriminators': state.discriminators.state_dict(),
-                        'gen_opt': state.gen_opt.state_dict(),
-                        'disc_opt': state.disc_opt.state_dict(),
-                        'step': state.step, 'epoch': epoch})
+        save_file(g_path, {'generator': state.generator.state_dict()})
+        save_file(do_path, {'discriminators': state.discriminators.state_dict(),
+                            'gen_opt': state.gen_opt.state_dict(),
+                            'disc_opt': state.disc_opt.state_dict(),
+                            'step': state.step, 'epoch': epoch})
         prune_old(run_dir, 'g_', keep)
         prune_old(run_dir, 'do_', keep)
     if state.shard is not None:
@@ -143,6 +143,17 @@ def restore_gan(run_dir: str, state) -> Tuple[Optional[object], int]:
     state.disc_opt.load_state_dict(do['disc_opt'])
     state.step = int(do['step'])
     return state, int(do['epoch'])
+
+
+def load_generator_params(path: str) -> Dict[str, torch.Tensor]:
+    """The generator's state dict of a vocoder checkpoint: a ``g_`` file,
+    or the newest in a run dir (``Synthesizer(gen_params=...)`` takes it)."""
+    if os.path.isdir(path):
+        found = scan_checkpoint(path, 'g_')
+        if found is None:
+            raise FileNotFoundError(f'no g_ checkpoint in {path}')
+        path = found
+    return torch.load(path, map_location='cpu')['generator']
 
 
 def restore_generator_params(run_dir: str, generator: nn.Module) -> Optional[nn.Module]:

@@ -24,7 +24,16 @@ or joins the group of a launcher (``torchrun --nproc_per_node N``) or of
 ``--coordinator``/``--num_processes``/``--process_id``.  Rank r trains on
 ``cuda:LOCAL_RANK`` (NCCL; gloo with ``--device cpu``); rank 0 alone
 writes logs, summaries, checkpoints and the eval dump.  ``--model_parallel
-> 1`` (ROADMAP queue 1.7b) and ``--device_data`` (queue 1.8) are refused.
+> 1`` (ROADMAP queue 1.7b) is refused.
+
+``--device_data`` keeps the whole corpus on the device
+(``data/device_data.py``: one upload, each batch gathered there from its
+indices, padded to the corpus-wide geometry with the batch's own loss
+lengths); under ``--num_devices N`` each rank holds one block of it.  It
+exits when the corpus does not fit the device's budget
+(``device_data.fits_in_hbm``), and it is refused for a run whose ranks
+may be on other hosts (``--coordinator``, a launcher across nodes), as
+the JAX package refuses multi-host runs.
 The model trains in float32 with TF32 off.  ``--device`` defaults to
 ``cuda`` and raises without a card.
 
@@ -45,12 +54,13 @@ import torch
 
 from ..audio import transforms as T
 from ..config import Config
+from ..data import device_data as DD
 from ..data.feeder import AcousticDataset, DataFeeder
 from ..data.prefetch import device_batches
 from ..eval.metrics import prds_accuracy
 from ..models.layers import Draws
 from ..parallel import (any_rank, current_shard, is_primary, join_group, replicate,
-                        start_workers, world_size)
+                        single_host, start_workers, world_size)
 from ..serve.pipeline import resolve_device
 from ..text import frontend
 from ..utils.logging import ValueWindow, get_logger, host_rss_gb
@@ -67,9 +77,11 @@ def _refuse_unported(args) -> None:
         raise SystemExit('--model_parallel > 1 (tensor parallelism) is not ported '
                          'yet (ROADMAP queue 1.7b); data parallelism is '
                          '--num_devices')
-    if getattr(args, 'device_data', False):
-        raise SystemExit('--device_data (the corpus resident on the device) is not '
-                         'ported yet (ROADMAP queue 1.8)')
+    if getattr(args, 'device_data', False) and not single_host(args):
+        raise SystemExit('--device_data supports single-host runs (one or several '
+                         'devices of this machine); runs with ranks on other hosts '
+                         '(--coordinator, a launcher across nodes) stream through '
+                         'the feeder')
 
 
 def make_draws(seed: int, device: torch.device, shard=None) -> Draws:
@@ -129,20 +141,13 @@ def train(args) -> None:
                     f'{cfg.acoustic.batch_size // world_size()} rows each')
     draws = make_draws(cfg.audio.randseed + 3 * state.step, device)
 
-    feeder = DataFeeder(dataset, cfg)
-    feeder.start()
-    wire = WIRE_DTYPES[getattr(args, 'wire_dtype', None) or 'float32']
-    prefetch = getattr(args, 'prefetch', 2)
-    if prefetch > 0:
-        batches = device_batches(feeder, device, prefetch, wire)
-        logger.info(f'prefetch depth {prefetch}'
-                    + (f', wire dtype {wire}' if wire is not None else ''))
+    feeder = None
+    if getattr(args, 'device_data', False):
+        batches = _resident_batches(args, cfg, dataset, state, device, logger)
     else:
-        if wire is not None:
-            logger.warning('--wire_dtype has no effect: it applies only to the '
-                           '--prefetch path')
-        batches = ({k: torch.from_numpy(np.asarray(v)).to(device) for k, v in b.items()}
-                   for b in feeder)
+        feeder = DataFeeder(dataset, cfg)
+        feeder.start()
+        batches = _streamed_batches(args, feeder, device, logger)
 
     time_window, loss_window = ValueWindow(100), ValueWindow(100)
     max_steps = args.max_steps or cfg.acoustic.max_steps
@@ -203,13 +208,51 @@ def train(args) -> None:
                 _dump_eval(cfg, state, batch, args.log_path, step, logger, sw)
                 last_t = time.time()                  # exclude the eval dump
     finally:
-        feeder.stop()
+        if feeder is not None:
+            feeder.stop()
         batches.close()
         if prof is not None:
             _stop_profiler(prof, args.profile_dir, logger)
         if sw is not None:
             sw.close()
     logger.info(f'training complete at step {step}')
+
+
+def _streamed_batches(args, feeder, device, logger):
+    """The feeder's batches on ``device``: copied ahead on a side stream
+    (``--prefetch``, ``--wire_dtype``) or one at a time."""
+    wire = WIRE_DTYPES[getattr(args, 'wire_dtype', None) or 'float32']
+    prefetch = getattr(args, 'prefetch', 2)
+    if prefetch > 0:
+        logger.info(f'prefetch depth {prefetch}'
+                    + (f', wire dtype {wire}' if wire is not None else ''))
+        return device_batches(feeder, device, prefetch, wire)
+    if wire is not None:
+        logger.warning('--wire_dtype has no effect: it applies only to the '
+                       '--prefetch path')
+    return ({k: torch.from_numpy(np.asarray(v)).to(device) for k, v in b.items()}
+            for b in feeder)
+
+
+def _resident_batches(args, cfg, dataset, state, device, logger):
+    """``--device_data``: the corpus (this rank's block of it) uploaded
+    once; batches gathered on the device from the plan's indices."""
+    if not DD.fits_in_hbm(dataset, cfg, device=device):
+        raise SystemExit(
+            f'--device_data: padded corpus is '
+            f'{DD.corpus_nbytes(dataset, cfg) / 2 ** 30:.1f} GiB, over the budget of '
+            f'{DD.HBM_SHARE:.4f} of the device\'s '
+            f'{DD.device_memory_bytes(device) / 2 ** 30:.1f} GiB; use the streaming '
+            'feeder')
+    t0 = time.time()
+    sharded = state.shard is not None and state.shard.count > 1
+    dd = (DD.ShardedDeviceResidentData(dataset, cfg, state.shard, device) if sharded
+          else DD.DeviceResidentData(dataset, cfg, device))
+    logger.info(f'device-resident corpus: {dd.nbytes() / 2 ** 30:.2f} GiB '
+                f'({dd.n} x T{dd.t_pad} x N{dd.n_pad}'
+                f'{f", block {state.shard.index} of {state.shard.count}" if sharded else ""}'
+                f'), uploaded in {time.time() - t0:.1f}s')
+    return iter(DD.DevicePump(dd, seed=cfg.audio.randseed))
 
 
 def _start_profiler(device: torch.device):
@@ -351,7 +394,9 @@ def parser() -> argparse.ArgumentParser:
                         'copy (the targets round to ~1e-3 relative; the math '
                         'stays float32).  --prefetch path only')
     p.add_argument('--device_data', action='store_true', default=False,
-                   help='refused: the device-resident corpus is not ported yet')
+                   help='keep the corpus on the device (16-bit targets) and gather '
+                        'each batch there (one block per rank under --num_devices); '
+                        'single-host runs only')
     p.add_argument('--debug_nans', action='store_true', default=False,
                    help='check every step\'s losses and gradients for finite values')
     p.add_argument('--profile_dir', default=None,

@@ -11,6 +11,8 @@ spectrograms where ``tensorboard``/``matplotlib`` are installed;
 ``g_``/``do_`` checkpoints, resumed from on start; a host-memory guard
 (checkpoint and exit 75 for a resume); validation every interval.
 ``--finetune`` consumes the acoustic preprocessor's features.
+``--gl_engine`` picks the Griffin-Lim engine of the loader's templates:
+the native library (default) or numpy.
 
 Data parallelism (``parallel``): ``--num_devices N`` runs one process per
 device, each on ``batch_size / N`` examples of every global batch (a
@@ -96,10 +98,11 @@ def train(args) -> None:
         except ImportError:
             pass
 
+    engine = getattr(args, 'gl_engine', 'native')
     trainset = VocoderDataset(getattr(args, 'train_split', 'train'),
-                              args.data_dir, cfg, finetune=args.finetune)
+                              args.data_dir, cfg, finetune=args.finetune, engine=engine)
     validset = VocoderDataset('test', args.data_dir, cfg, finetune=args.finetune,
-                              limit=hv.valid_limit)
+                              limit=hv.valid_limit, engine=engine)
     logger.info(f'dataset: {len(trainset)} train / {len(validset)} valid')
     loader = VocoderLoader(trainset, hv.batch_size, shuffle=True,
                            num_workers=hv.num_workers)
@@ -262,6 +265,9 @@ def parser() -> argparse.ArgumentParser:
                         '(resume continues the run).  0 = off.')
     p.add_argument('--prefetch', type=int, default=2,
                    help='batches copied to the device ahead of the step')
+    p.add_argument('--gl_engine', default='native', choices=T.ENGINES,
+                   help="the loader's Griffin-Lim templates: the native library "
+                        '(built from native/ttsdsp.cpp at first use) or numpy')
     p.add_argument('--debug_nans', action='store_true', default=False,
                    help='torch.autograd anomaly detection')
     p.add_argument('--compute_dtype', default=None,
