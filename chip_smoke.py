@@ -110,6 +110,17 @@ exit:
    streaming feeder: its batches (float16 store, ``STORE_TOL``), step time,
    host-to-device bytes per step and the corpus's bytes on the card; a
    closed-loop ``tools/serving_latency.py`` load.
+11. Tensor parallelism (``--model_parallel``) at the default ``Config()``:
+   two spawned processes in a gloo group on ``cuda:0`` with a model axis of
+   2 (one data shard), each holding half of every leaf the JAX package's
+   ``tp_param_specs`` shards: one hoisted acoustic step on phase 9's global
+   batch against this process's, in float32 (``DP_ACOUSTIC_TOL``) and in
+   float64 (``DP_F64_TOL``); the parameters and Adam moments each rank
+   holds; each rank's step time (no claim); the GAN step with the model
+   axis bit for bit as one process's under deterministic algorithms; and
+   the gathered checkpoint of the two ranks served by a ``Synthesizer``
+   with the launch counters at 0 (one ``decode_full`` launch, a finite
+   wav).
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
@@ -1897,41 +1908,69 @@ def snapshot(named, metrics):
             {k: float(v) for k, v in metrics.items()})
 
 
-def dp_first_steps(cfg, device, dtype, acoustic, keep, gan):
+def local_batch(b, sl, device, dtype=torch.float32):
+    """Rows ``sl`` of the global batch ``b`` on ``device``, its floating
+    tensors in ``dtype``."""
+    return {k: (v[sl] if v.dim() else v).to(device, dtype if v.is_floating_point()
+                                             else v.dtype) for k, v in b.items()}
+
+
+def acoustic_first_step(cfg, device, dtype, acoustic, keep, shard=None):
     """This process's share (``parallel.process_shard``: all of it outside
-    a group) of one hoisted acoustic step and one GAN step from SEED in
-    ``dtype``, with the global batch's prenet masks and noise.  Returns
-    the two states and each step's averaged gradients and losses."""
+    a group) of one hoisted acoustic step from SEED in ``dtype`` with the
+    global batch's prenet masks, the state first passed to ``shard`` (the
+    model axis's ``shard_params_tp``).  Returns the state and the whole
+    averaged gradients and losses."""
     from transtacos_retunegan_tpu_torch.models.layers import Draws
-    from transtacos_retunegan_tpu_torch.parallel import current_shard, process_shard
+    from transtacos_retunegan_tpu_torch.parallel import current_shard, gather_tp, process_shard
     from transtacos_retunegan_tpu_torch.train import acoustic_step as A
-    from transtacos_retunegan_tpu_torch.train import vocoder_step as V
-
-    def local(b, sl):
-        return {k: (v[sl] if v.dim() else v).to(device, dtype if v.is_floating_point()
-                                                 else v.dtype) for k, v in b.items()}
-
     sl = process_shard(cfg.acoustic.batch_size)
     state = A.init_state(cfg, SEED, device, current_shard())
     state.model.to(dtype)
-    _, losses = A.train_step_hoisted(cfg, state, local(acoustic, sl), Draws(
+    if shard is not None:
+        shard(state)
+    _, losses = A.train_step_hoisted(cfg, state, local_batch(acoustic, sl, device, dtype), Draws(
         prenet_keep=[k[:, sl].to(device, dtype) for k in keep]))
-    out = {'acoustic': ({n: p.grad.cpu().clone() for n, p in state.model.named_parameters()},
-                        {k: float(v) for k, v in losses.items()})}
+    grads = gather_tp(state.model, {n: p.grad for n, p in state.model.named_parameters()})
+    return state, ({n: g.cpu().clone() for n, g in grads.items()},
+                   {k: float(v) for k, v in losses.items()})
+
+
+def dp_first_steps(cfg, device, dtype, acoustic, keep, gan):
+    """``acoustic_first_step`` and this process's share of one GAN step
+    from SEED in ``dtype`` with the global batch's noise.  Returns the two
+    states and each step's averaged gradients and losses."""
+    from transtacos_retunegan_tpu_torch.parallel import current_shard, process_shard
+    from transtacos_retunegan_tpu_torch.train import vocoder_step as V
+    state, grads = acoustic_first_step(cfg, device, dtype, acoustic, keep)
+    out = {'acoustic': grads}
     gst = V.init_gan_state(cfg, SEED, device, current_shard())
     gst.generator.to(dtype)
     gst.discriminators.to(dtype)
     primed(gst.gen_opt)
     primed(gst.disc_opt)
     gsl = process_shard(cfg.vocoder.batch_size)
-    noise = drawn_noise(cfg, gst.generator, local(gan, slice(None)), SEED)
-    _, m = V.gan_train_step(cfg, gst, local(gan, gsl),
+    noise = drawn_noise(cfg, gst.generator, local_batch(gan, slice(None), device, dtype), SEED)
+    _, m = V.gan_train_step(cfg, gst, local_batch(gan, gsl, device, dtype),
                             [n[gsl].to(device, dtype) for n in noise], 4)
     params = list(gst.generator.named_parameters()) + [
         (f'disc.{n}', p) for n, p in gst.discriminators.named_parameters()]
     out['gan'] = ({n: p.grad.cpu().clone() for n, p in params},
                   {k: float(v) for k, v in m.items()})
     return state, gst, out
+
+
+def times(step, timed: int, warm: int):
+    """CUDA-event times (ms) of ``timed`` calls of ``step`` after ``warm``."""
+    for _ in range(warm):
+        step()
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(timed + 1)]
+    marks[0].record()
+    for i in range(timed):
+        step()
+        marks[i + 1].record()
+    torch.cuda.synchronize()
+    return [marks[i].elapsed_time(marks[i + 1]) for i in range(timed)]
 
 
 def dp_steps(device, timed: int = DP_TIMED):
@@ -1950,26 +1989,13 @@ def dp_steps(device, timed: int = DP_TIMED):
     _, _, out64 = dp_first_steps(cfg, device, torch.float64, acoustic, keep, gan)
     state, gst, out = dp_first_steps(cfg, device, torch.float32, acoustic, keep, gan)
     out.update({f'{k}64': v for k, v in out64.items()})
-
-    def times(step):
-        for _ in range(DP_WARM):
-            step()
-        marks = [torch.cuda.Event(enable_timing=True) for _ in range(timed + 1)]
-        marks[0].record()
-        for i in range(timed):
-            step()
-            marks[i + 1].record()
-        torch.cuda.synchronize()
-        return [marks[i].elapsed_time(marks[i + 1]) for i in range(timed)]
-
-    sl = process_shard(cfg.acoustic.batch_size)
-    batch = {k: (v[sl] if v.dim() else v).to(device) for k, v in acoustic.items()}
+    batch = local_batch(acoustic, process_shard(cfg.acoustic.batch_size), device)
     draws = make_draws(SEED, device)
-    out['acoustic_ms'] = times(lambda: A.train_step_hoisted(cfg, state, batch, draws))
-    gsl = process_shard(cfg.vocoder.batch_size)
-    gbatch = {k: v[gsl].to(device) for k, v in gan.items()}
+    out['acoustic_ms'] = times(lambda: A.train_step_hoisted(cfg, state, batch, draws),
+                               timed, DP_WARM)
+    gbatch = local_batch(gan, process_shard(cfg.vocoder.batch_size), device)
     gen = torch.Generator(device=device).manual_seed(SEED)
-    out['gan_ms'] = times(lambda: V.gan_train_step(cfg, gst, gbatch, gen, 4))
+    out['gan_ms'] = times(lambda: V.gan_train_step(cfg, gst, gbatch, gen, 4), timed, DP_WARM)
     h = hashlib.sha1()
     for module in (state.model, gst.generator, gst.discriminators):
         for p in module.parameters():
@@ -1978,10 +2004,9 @@ def dp_steps(device, timed: int = DP_TIMED):
     return out
 
 
-def dp_rank(rank: int, port: int, out_dir: str, device: str) -> None:
-    """One rank of phase 9 (ii): joins a gloo group of two on ``device``
-    and saves ``dp_steps`` to ``out_dir``."""
-    import os
+def gloo_rank(rank: int, port: int, out_dir: str, device: str, fn, *args) -> None:
+    """One rank of phases 9 (ii) and 11: joins a gloo group of two on
+    ``device`` and saves ``fn(device, *args)`` to ``out_dir``."""
     import torch.distributed as dist
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1991,9 +2016,40 @@ def dp_rank(rank: int, port: int, out_dir: str, device: str) -> None:
         device = torch.device(device)
         if device.type == 'cuda':
             torch.cuda.set_device(device)
-        torch.save(dp_steps(device), os.path.join(out_dir, f'rank{rank}.pt'))
+        torch.save(fn(device, *args), os.path.join(out_dir, f'rank{rank}.pt'))
     finally:
         dist.destroy_process_group()
+
+
+def spawn_gloo_ranks(out_dir: str, device, fn, *args):
+    """``gloo_rank`` of ``fn`` in two spawned processes on cuda:0 (on
+    ``device`` itself off the card); their results in rank order and the
+    seconds they took with their start.  Raises AssertionError when a rank
+    fails; a rank still running after DP_TIMEOUT_S is stopped."""
+    import multiprocessing
+    from transtacos_retunegan_tpu_torch.parallel import free_port
+    ctx = multiprocessing.get_context('spawn')
+    port = free_port()
+    where = 'cuda:0' if device.type == 'cuda' else str(device)
+    procs = [ctx.Process(target=gloo_rank, args=(r, port, out_dir, where, fn) + args)
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout=max(1.0, DP_TIMEOUT_S - (time.perf_counter() - t0)))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0, 0]:
+        raise AssertionError(f'a rank of the gloo group ({fn.__name__}) failed: '
+                             f'exit codes {codes}')
+    ranks = [torch.load(os.path.join(out_dir, f'rank{r}.pt')) for r in range(2)]
+    return ranks, time.perf_counter() - t0
 
 
 def dp_errors(got, ref, tol: float):
@@ -2111,34 +2167,12 @@ def nccl_world_one(card: str, device):
 def gloo_two_ranks(card: str, device):
     """Phase 9 (ii): two spawned ranks in a gloo group on cuda:0 against
     this process's step on the whole batch."""
-    import multiprocessing
-    import os
     import tempfile
-    from transtacos_retunegan_tpu_torch.parallel import free_port
     t0 = time.perf_counter()
     ref = dp_steps(device)
     ref_s = time.perf_counter() - t0
-    ctx = multiprocessing.get_context('spawn')
     with tempfile.TemporaryDirectory() as tmp:
-        port = free_port()
-        where = 'cuda:0' if device.type == 'cuda' else str(device)
-        procs = [ctx.Process(target=dp_rank, args=(r, port, tmp, where)) for r in range(2)]
-        t0 = time.perf_counter()
-        for p in procs:
-            p.start()
-        try:
-            for p in procs:
-                p.join(timeout=max(1.0, DP_TIMEOUT_S - (time.perf_counter() - t0)))
-        finally:
-            for p in procs:
-                if p.is_alive():
-                    p.terminate()
-                    p.join()
-        codes = [p.exitcode for p in procs]
-        if codes != [0, 0]:
-            raise AssertionError(f'a rank of the gloo group failed: exit codes {codes}')
-        ranks = [torch.load(os.path.join(tmp, f'rank{r}.pt')) for r in range(2)]
-    wall = time.perf_counter() - t0
+        ranks, wall = spawn_gloo_ranks(tmp, device, dp_steps)
     ok = ranks[0]['hash'] == ranks[1]['hash']
     for name, tol in (('acoustic', DP_ACOUSTIC_TOL), ('gan', DP_GAN_TOL),
                       ('acoustic64', DP_F64_TOL), ('gan64', DP_F64_TOL)):
@@ -2486,6 +2520,111 @@ def host_side(fd, synth, device):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: tensor parallelism
+# ---------------------------------------------------------------------------
+# Two gloo ranks on one card with --model_parallel 2 (one data shard: both
+# ranks compute phase 9's whole global batch, each on its half of every
+# sharded leaf) against this process's step, at phase 9's tolerances.
+TP_K = 2
+TP_TIMED, TP_WARM = 3, 1
+
+
+def tp_rank_steps(device, k: int, run_dir=None):
+    """This process under ``make_mesh(None, k)`` (one process outside a
+    group): ``acoustic_first_step`` on phase 9's global batch and prenet
+    masks in float64 and in float32, the state sharded over the model
+    axis; the elements this rank holds of the parameters and of their Adam
+    moments; TP_TIMED more float32 steps (CUDA events) and, under
+    ``run_dir``, the gathered checkpoint of that state; one GAN step from
+    SEED under deterministic algorithms and a hash of its parameters."""
+    import hashlib
+    from transtacos_retunegan_tpu_torch.config import Config
+    from transtacos_retunegan_tpu_torch.parallel import (current_shard, make_mesh,
+                                                        process_shard, shard_params_tp)
+    from transtacos_retunegan_tpu_torch.train import acoustic_step as A
+    from transtacos_retunegan_tpu_torch.train import vocoder_step as V
+    from transtacos_retunegan_tpu_torch.train.checkpoint import save_acoustic
+    from transtacos_retunegan_tpu_torch.train.train_acoustic import make_draws
+    from transtacos_retunegan_tpu_torch.utils.determinism import deterministic
+    cfg = Config()
+    acoustic, keep, gan = dp_batches(cfg)
+    mesh = make_mesh(None, k)
+    out = {}
+    for dtype, name in ((torch.float64, 'acoustic64'), (torch.float32, 'acoustic')):
+        state, out[name] = acoustic_first_step(
+            cfg, device, dtype, acoustic, keep,
+            lambda st: shard_params_tp(mesh, st.model, st.opt))
+    out['held'] = sum(p.numel() for p in state.model.parameters())
+    out['moments'] = sum(v.numel() for st in state.opt.state.values()
+                         for n, v in st.items() if n.startswith('exp_avg'))
+    batch = local_batch(acoustic, process_shard(cfg.acoustic.batch_size), device)
+    draws = make_draws(SEED, device)
+    out['acoustic_ms'] = times(lambda: A.train_step_hoisted(cfg, state, batch, draws),
+                               TP_TIMED, TP_WARM)
+    if run_dir is not None:
+        save_acoustic(run_dir, state)
+    with deterministic():
+        gst = V.init_gan_state(cfg, SEED, device, current_shard())
+        gsl = process_shard(cfg.vocoder.batch_size)
+        gbatch = {n: v.to(device) for n, v in gan.items()}
+        noise = drawn_noise(cfg, gst.generator, gbatch, SEED)
+        _, m = V.gan_train_step(cfg, gst, {n: v[gsl] for n, v in gbatch.items()},
+                                [n[gsl].to(device) for n in noise], 4)
+        h = hashlib.sha1()
+        for module in (gst.generator, gst.discriminators):
+            for p in module.parameters():
+                h.update(p.detach().cpu().numpy().tobytes())
+    out['gan'] = (h.hexdigest(), {n: float(v) for n, v in m.items()})
+    return out
+
+
+def tensor_parallel(fd, card: str, device):
+    """Phase 11; returns the launches of the TP checkpoint's request."""
+    import tempfile
+    from transtacos_retunegan_tpu_torch.config import Config
+    from transtacos_retunegan_tpu_torch.models.acoustic import Tacotron
+    from transtacos_retunegan_tpu_torch.parallel import tp_param_specs
+    t0 = time.perf_counter()
+    ref = tp_rank_steps(device, 1)
+    ref_s = time.perf_counter() - t0
+    with torch.device('meta'):
+        model = Tacotron(Config())
+    total = sum(p.numel() for p in model.parameters())
+    split = sum(model.get_parameter(n).numel() for n in tp_param_specs(model, TP_K))
+    want = total - split + split // TP_K
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks, wall = spawn_gloo_ranks(tmp, device, tp_rank_steps, TP_K,
+                                       os.path.join(tmp, 'run'))
+        launches = served_from_checkpoint(fd, os.path.join(tmp, 'run'), device)
+    ok = True
+    for name, tol in (('acoustic', DP_ACOUSTIC_TOL), ('acoustic64', DP_F64_TOL)):
+        for r, got in enumerate(ranks):
+            wl, wg, within_tol = dp_errors(got[name], ref[name], tol)
+            ok = ok and within_tol
+            log(f'  --model_parallel {TP_K}, rank {r} of 2 on one card, {name} step against one '
+                f'process: worst loss {wl[0]} {wl[1]:.2e} relative, worst gradient leaf '
+                f'{wg[0]} {wg[1]:.2e} of its norm (tol {tol:.0e})')
+    held = [(got['held'], got['moments']) for got in ranks]
+    log(f'  elements held per rank (parameters, Adam moments): {held}; one process: '
+        f'({ref["held"]}, {ref["moments"]}); expected {want:,} parameters per rank '
+        f'({total:,} less half of the {split:,} in the {len(tp_param_specs(model, TP_K))} '
+        f'sharded leaves; biases replicate)')
+    ok = ok and all(h == (want, 2 * want) for h in held) and ref['held'] == total
+    for r, got in enumerate(ranks):
+        log(f'  rank {r} hoisted step ms (CUDA events, {TP_TIMED} after {TP_WARM}; no claim: '
+            f'two ranks share the card and gloo copies every collective through the host): '
+            f'{quartiles(got["acoustic_ms"])}; one process: {quartiles(ref["acoustic_ms"])} '
+            f'[{card}]')
+    gan_same = all(got['gan'] == ref['gan'] for got in ranks)
+    log(f'  GAN step with --model_parallel {TP_K} (every parameter replicated), deterministic '
+        f'algorithms: both ranks bit for bit as one process: {gan_same}')
+    log(f'  one-process reference {ref_s:.1f} s, the two ranks {wall:.1f} s with their start')
+    if not (ok and gan_same):
+        raise AssertionError('the tensor-parallel steps disagree with one process')
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -2565,6 +2704,14 @@ def main() -> int:
     launches = {k: launches[k] + imported.get(k, 0) for k in launches}
     log(f'  phase 10 took {time.perf_counter() - t0:.1f} s; the imported checkpoint\'s request '
         f'{imported}; LAUNCHES over the paths of phases 4, 5, 8, 9 and 10: {launches}')
+
+    log(f'== phase 11: tensor parallelism (--model_parallel {TP_K}, two gloo ranks on '
+        'one card)')
+    t0 = time.perf_counter()
+    served = tensor_parallel(fd, card, device)
+    launches = {k: launches[k] + served.get(k, 0) for k in launches}
+    log(f'  phase 11 took {time.perf_counter() - t0:.1f} s; the TP checkpoint\'s request '
+        f'{served}; LAUNCHES over the paths of phases 4, 5 and 8-11: {launches}')
 
     sources = {'decode_step': 'fused_decoder.cu', 'decode_full': 'fused_decoder.cu',
                'lsa_step': 'lsa_step.cu'}

@@ -256,20 +256,30 @@ def test_cli_exits_1_when_the_loss_explodes(corpus, tmp_path, monkeypatch):
     assert ckpt.scan_checkpoint(str(tmp_path / 'run'), 'ckpt_') is None
 
 
-@pytest.mark.parametrize('flag,pointer', [
-    pytest.param(['--num_devices', '2', '--device', 'cuda'], 'only 0 CUDA devices',
+LAUNCHED_ALONE = {'RANK': '0', 'WORLD_SIZE': '2', 'LOCAL_WORLD_SIZE': '1'}
+
+
+@pytest.mark.parametrize('flag,pointer,env', [
+    pytest.param(['--num_devices', '2', '--device', 'cuda'], 'only 0 CUDA devices', {},
                  id='flag0-queue 1.7'),
-    pytest.param(['--model_parallel', '2'], 'queue 1.7b', id='flag1-queue 1.7'),
-    pytest.param(['--coordinator', 'localhost:1234'], '--num_processes',
+    pytest.param(['--num_devices', '2', '--model_parallel', '3', '--device', 'cpu'],
+                 'does not divide --num_devices 2', {}, id='flag1-queue 1.7'),
+    pytest.param(['--coordinator', 'localhost:1234'], '--num_processes', {},
                  id='flag2-queue 1.7'),
     pytest.param(['--device_data', '--coordinator', 'localhost:1234', '--num_processes', '2',
-                  '--process_id', '0'], 'single-host', id='flag3-queue 1.8')])
-def test_cli_refuses_what_is_not_ported(corpus, tmp_path, flag, pointer):
-    """Tensor parallelism is not ported; data parallelism is, but not over
-    more cards than the machine has (none here), nor with a coordinator
-    and no rank; the device-resident corpus (queue 1.8) is, but not for a
+                  '--process_id', '0'], 'single-host', {}, id='flag3-queue 1.8'),
+    pytest.param(['--num_devices', '2', '--model_parallel', '2', '--device', 'cpu'],
+                 'model groups would span hosts', LAUNCHED_ALONE, id='flag4-hosts')])
+def test_cli_refuses_what_is_not_ported(corpus, tmp_path, monkeypatch, flag, pointer, env):
+    """Data parallelism is ported, but not over more cards than the
+    machine has (none here), nor with a coordinator and no rank; tensor
+    parallelism is, but not with a model axis that does not divide the
+    devices, nor with model groups across hosts (a launcher's rank alone on
+    its host); the device-resident corpus (queue 1.8) is, but not for a
     run whose ranks may be on other hosts, as the JAX package refuses
     multi-host runs."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
     with pytest.raises(SystemExit, match=pointer):
         ta.train(_args(corpus, tmp_path / 'run', tmp_path, *flag))
     assert not (tmp_path / 'run').exists()

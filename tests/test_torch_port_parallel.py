@@ -47,7 +47,7 @@ from torch_port_common import few_threads  # noqa: F401
 from torch_port_common import (acoustic_batch, acoustic_cfg_pair, acoustic_tree,
                                exact_zero_imag_stft_ri, generator_args,
                                jax_generator_with_noise, small_cfg, vocoder_batch,
-                               vocoder_cfg_pair, vocoder_trees)
+                               vocoder_cfg_pair, vocoder_trees, write_npy_corpus)
 from transtacos_retunegan_tpu.audio import dsp as jdsp
 from transtacos_retunegan_tpu.config import Config as JaxConfig
 from transtacos_retunegan_tpu.data import feeder as JD
@@ -63,8 +63,6 @@ from transtacos_retunegan_tpu_torch.serve import pipeline as PP
 from transtacos_retunegan_tpu_torch.tools import multihost_smoke
 
 pytestmark = pytest.mark.usefixtures('few_threads')
-SYLLABLES = ['ni3', 'hao3', 'shi4', 'jie4', 'zhong1', 'guo2', 'ren2', 'wo3', 'men5',
-             'de5', 'jia1', 'tian1', 'qi4']
 
 
 @pytest.fixture(scope='module')
@@ -89,20 +87,7 @@ def npy_corpus(tmp_path_factory):
     """A preprocessed-corpus directory of random features (the layout both
     packages' ``AcousticDataset`` read): 24 utterances of 2-9 syllables
     and 30-110 frames."""
-    d = tmp_path_factory.mktemp('npy_corpus')
-    rng = np.random.RandomState(0)
-    cfg = PortConfig().audio
-    rows = []
-    for i in range(24):
-        n, t = rng.randint(2, 10), rng.randint(30, 111)
-        text = ' '.join(rng.choice(SYLLABLES, n))
-        rows.append(f'u{i:02d}|{"0" * (n - 1)}4|{text}')
-        np.save(d / f'mel-u{i:02d}.npy', rng.randn(cfg.n_mel, t).astype(np.float32))
-        np.save(d / f'mag-u{i:02d}.npy', rng.randn(cfg.n_freq, t).astype(np.float32))
-        np.save(d / f'f0-u{i:02d}.npy', rng.uniform(0, 400, t).astype(np.float32))
-        np.save(d / f'c0-u{i:02d}.npy', rng.uniform(0, 1, t).astype(np.float32))
-    (d / 'train.txt').write_text('\n'.join(rows), encoding='utf-8')
-    return str(d)
+    return write_npy_corpus(tmp_path_factory.mktemp('npy_corpus'))
 
 
 def _batches(feeder, n):
@@ -386,7 +371,7 @@ def test_checkpoints_written_by_rank_0_and_resumed_by_both(group, tmp_path):
     assert out[0]['writes'] == ['ckpt_00000008', 'g_00000005', 'do_00000005']
     assert out[1]['writes'] == []
     for o in out:
-        assert o['step'] == 8 and o['restored_equal']
+        assert o['step'] == 8 and o['restored_equal'] and o['moments_held']
         assert o['gan_step'] == 5 and o['epoch'] == 1
     _assert_ranks_equal(out, 'params')
 

@@ -264,14 +264,21 @@ def test_cli_exits_1_when_the_loss_explodes(corpus, tmp_path, monkeypatch):
     assert 'loss exploded' in (tmp_path / 'run' / 'rtg.log').read_text()
 
 
-@pytest.mark.parametrize('flag,pointer', [
-    pytest.param(['--num_devices', '2', '--device', 'cuda'], 'only 0 CUDA devices',
+@pytest.mark.parametrize('flag,pointer,env', [
+    pytest.param(['--num_devices', '2', '--device', 'cuda'], 'only 0 CUDA devices', {},
                  id='flag0'),
-    pytest.param(['--model_parallel', '2'], 'queue 1.7b', id='flag1'),
-    pytest.param(['--coordinator', 'localhost:1234'], '--num_processes', id='flag2')])
-def test_cli_refuses_more_than_one_device(corpus, tmp_path, flag, pointer):
-    """More cards than the machine has (none here), tensor parallelism (not
-    ported), a coordinator without a rank."""
+    pytest.param(['--num_devices', '2', '--model_parallel', '3', '--device', 'cpu'],
+                 'does not divide --num_devices 2', {}, id='flag1'),
+    pytest.param(['--coordinator', 'localhost:1234'], '--num_processes', {}, id='flag2'),
+    pytest.param(['--num_devices', '2', '--model_parallel', '2', '--device', 'cpu'],
+                 'model groups would span hosts',
+                 {'RANK': '0', 'WORLD_SIZE': '2', 'LOCAL_WORLD_SIZE': '1'}, id='flag3')])
+def test_cli_refuses_more_than_one_device(corpus, tmp_path, monkeypatch, flag, pointer, env):
+    """More cards than the machine has (none here), a model axis that does
+    not divide the devices, a coordinator without a rank, model groups
+    across hosts (a launcher's rank alone on its host)."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
     with pytest.raises(SystemExit, match=pointer):
         train_vocoder.train(_args(corpus, tmp_path / 'run', _tiny_config(tmp_path), *flag))
     assert not (tmp_path / 'run').exists()

@@ -388,3 +388,26 @@ def reference_state_dict(module, mapping, seed: int):
     port's ``module`` (``interop.seeded_state_dict``)."""
     from transtacos_retunegan_tpu_torch.interop import seeded_state_dict
     return seeded_state_dict(module, mapping, seed)
+
+
+SYLLABLES = ['ni3', 'hao3', 'shi4', 'jie4', 'zhong1', 'guo2', 'ren2', 'wo3', 'men5',
+             'de5', 'jia1', 'tian1', 'qi4']
+
+
+def write_npy_corpus(d):
+    """A preprocessed-corpus directory of random features in ``d`` (the
+    layout both packages' ``AcousticDataset`` read): 24 utterances of 2-9
+    syllables and 30-110 frames."""
+    rng = np.random.RandomState(0)
+    cfg = PortConfig().audio
+    rows = []
+    for i in range(24):
+        n, t = rng.randint(2, 10), rng.randint(30, 111)
+        text = ' '.join(rng.choice(SYLLABLES, n))
+        rows.append(f'u{i:02d}|{"0" * (n - 1)}4|{text}')
+        np.save(d / f'mel-u{i:02d}.npy', rng.randn(cfg.n_mel, t).astype(np.float32))
+        np.save(d / f'mag-u{i:02d}.npy', rng.randn(cfg.n_freq, t).astype(np.float32))
+        np.save(d / f'f0-u{i:02d}.npy', rng.uniform(0, 400, t).astype(np.float32))
+        np.save(d / f'c0-u{i:02d}.npy', rng.uniform(0, 1, t).astype(np.float32))
+    (d / 'train.txt').write_text('\n'.join(rows), encoding='utf-8')
+    return str(d)

@@ -127,9 +127,23 @@ def smoke(argv):
     return multihost_smoke.run(argv)
 
 
-def cli(module, argv):
-    """``main(argv)`` of a port module, in this group as under a launcher."""
-    importlib.import_module(f'transtacos_retunegan_tpu_torch.{module}').main(argv)
+def cli(module, argv, tensorboard=True):
+    """``main(argv)`` of a port module, in this group as under a launcher;
+    without ``tensorboard`` the trainers find no TensorBoard (whose
+    writer imports TensorFlow where it is installed, about 20 s) and write
+    no summaries."""
+    import sys
+    saved = sys.modules.get('tensorboard', False)
+    if not tensorboard:
+        sys.modules['tensorboard'] = None            # find_spec: not installed
+    try:
+        importlib.import_module(f'transtacos_retunegan_tpu_torch.{module}').main(argv)
+    finally:
+        if not tensorboard:
+            if saved is False:
+                del sys.modules['tensorboard']
+            else:
+                sys.modules['tensorboard'] = saved
 
 
 def spawned_entry(args):
@@ -232,17 +246,28 @@ def gan_steps(pcfg, batches, seed):
             'metrics': {k: float(v) for k, v in m.items()}}
 
 
-def checkpoint_round(pcfg, tree, batch, run_dir):
+def checkpoint_round(pcfg, tree, batch, run_dir, k=1):
     """Save both trainers' checkpoints with every file write recorded (rank
     0 writes, the others wait), then restore into a state seeded
     differently and take one step; what each rank wrote, the restored step
-    and the parameters after the step."""
+    and the parameters after the step.  With the model axis of size ``k``
+    the acoustic states are sharded before the step and before the
+    restore, and the parameters returned are the whole ones."""
+    from transtacos_retunegan_tpu_torch.parallel import (gather_params_tp, make_mesh,
+                                                        shard_params_tp)
+    mesh = make_mesh(None, k)
+
+    def state_at(step, model):
+        st = A.TrainState(step, model, A.make_optimizer(pcfg, model), current_shard())
+        if k > 1:
+            shard_params_tp(mesh, st.model, st.opt)
+        return st
+
     writes = []
     save = ckpt.save_file
     ckpt.save_file = lambda path, obj: (writes.append(path), save(path, obj))
     try:
-        model = weights.load_flax(Tacotron(pcfg), tree)
-        state = A.TrainState(7, model, A.make_optimizer(pcfg, model), current_shard())
+        state = state_at(7, weights.load_flax(Tacotron(pcfg), tree))
         state, _ = A.train_step(pcfg, state, _local(batch), Draws())
         ckpt.save_acoustic(run_dir, state)
         gst = V.init_gan_state(pcfg, 3, 'cpu', current_shard())
@@ -250,14 +275,141 @@ def checkpoint_round(pcfg, tree, batch, run_dir):
         ckpt.save_gan(run_dir, gst, epoch=1)
     finally:
         ckpt.save_file = save
-    fresh = A.init_state(pcfg, 1000 + rank(), 'cpu', current_shard())
+    fresh = state_at(0, weights.seeded_init(Tacotron(pcfg), 1000 + rank()))
     ckpt.restore_acoustic(run_dir, fresh)
     restored_equal = all(torch.equal(p, q) for p, q in zip(fresh.model.parameters(),
-                                                           model.parameters()))
+                                                           state.model.parameters()))
+    moments_held = all(fresh.opt.state[p]['exp_avg'].shape == p.shape
+                       for p in fresh.model.parameters())
     step = fresh.step
     fresh, _ = A.train_step(pcfg, fresh, _local(batch), Draws())
     g2 = V.init_gan_state(pcfg, 1000 + rank(), 'cpu', current_shard())
     _, epoch = ckpt.restore_gan(run_dir, g2)
+    params = gather_params_tp(fresh.model)[0] if k > 1 else dict(fresh.model.named_parameters())
     return {'writes': [p.rsplit('/', 1)[-1] for p in writes], 'step': step,
-            'restored_equal': restored_equal, 'gan_step': g2.step, 'epoch': epoch,
-            'params': _np(fresh.model.named_parameters())}
+            'restored_equal': restored_equal, 'moments_held': moments_held,
+            'gan_step': g2.step, 'epoch': epoch, 'params': _np(params.items())}
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism (``tests/test_torch_port_tensor_parallel.py``): each job
+# lays its group out with ``make_mesh(None, k)`` first (None, and so one
+# process, outside a group)
+# ---------------------------------------------------------------------------
+
+def tp_acoustic_steps(pcfg, tree, stats, batches, step, hoisted, k, keep=None,
+                      dtype=torch.float32, seeds=None):
+    """Steps of the acoustic model from ``tree`` at ``step`` with the model
+    axis of size ``k``, on this rank's rows of each global batch (the
+    noise, dropout and teacher-forcing streams seeded with ``seeds``, else
+    the prenet masks ``keep``, [S, B, width] of the global batch, else no
+    draws), in ``dtype``.  After each step: the logged losses and the whole
+    (gathered) gradients; at the end the summaries' gradient norms on the
+    last batch, the whole parameters, the batch statistics, and the
+    elements this rank holds of the parameters and of their Adam
+    moments."""
+    from transtacos_retunegan_tpu_torch.parallel import (gather_params_tp, gather_tp,
+                                                        make_mesh, shard_params_tp,
+                                                        tp_sharded)
+    mesh = make_mesh(None, k)
+    model = weights.load_flax(Tacotron(pcfg), tree, stats).to(dtype)
+    state = A.TrainState(step, model, A.make_optimizer(pcfg, model), current_shard())
+    shard_params_tp(mesh, model, state.opt)
+    sharded = tp_sharded(model)
+    sl = process_shard(batches[0]['text'].shape[0])
+    if seeds is not None:
+        draws = Draws(*[torch.Generator().manual_seed(s) for s in seeds])
+    else:
+        draws = Draws(prenet_keep=None if keep is None else [
+            torch.from_numpy(np.ascontiguousarray(m[:, sl])).to(dtype) for m in keep])
+    fn = A.train_step_hoisted if hoisted else A.train_step
+    steps = []
+    for b in batches:
+        local = {n: v.to(dtype) if v.is_floating_point() else v for n, v in _local(b).items()}
+        state, losses = fn(pcfg, state, local, draws)
+        grads = gather_tp(model, {n: p.grad for n, p in model.named_parameters()})
+        steps.append({'losses': {n: float(v) for n, v in losses.items()},
+                      'grads': _np(grads.items())})
+    norms = A.summary_stats(pcfg, state, local, draws)['grad_norms']
+    params, _ = gather_params_tp(model)
+    held = sum(p.numel() for p in model.parameters())
+    moments = sum(v.numel() for st in state.opt.state.values()
+                  for n, v in st.items() if n.startswith('exp_avg'))
+    return {'steps': steps, 'params': _np(params.items()), 'buffers': _np(model.named_buffers()),
+            'held': held, 'moments': moments, 'sharded': sorted(sharded),
+            'grad_norms': {n: float(v) for n, v in norms.items()}}
+
+
+def regroup(ports):
+    """Lay the group out with the model axis, then leave it and join a new
+    group at each of ``ports`` in turn, first as the other rank and then
+    as this one: for each, ``current_shard()`` before any ``make_mesh``
+    and the new ``make_mesh(None, n)``, checked live by a sum of the
+    ranks over its model group."""
+    from transtacos_retunegan_tpu_torch.parallel import make_mesh
+    r, n = rank(), dist.get_world_size()
+    make_mesh(None, n)
+    seen = []
+    for port, as_rank in zip(ports, [n - 1 - r, r]):
+        dist.destroy_process_group()
+        dist.init_process_group('gloo', init_method=f'tcp://127.0.0.1:{port}', world_size=n,
+                                rank=as_rank,
+                                timeout=datetime.timedelta(seconds=JOB_TIMEOUT_S / 2))
+        s = current_shard()
+        m = make_mesh(None, n)
+        t = torch.tensor([float(rank())])
+        dist.all_reduce(t, group=m.model_group)
+        seen.append(((s.index, s.count, s.model_index, s.model_count),
+                     (m.index, m.count, m.model_index, m.model_count), float(t)))
+    return seen
+
+
+def tp_step_flops(pcfg, batch, k, seed=3):
+    """The FLOPs (``torch.utils.flop_counter``) of one hoisted acoustic step
+    from seeded weights with the model axis of size ``k``, forward and
+    backward, on this rank's rows of ``batch``."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from transtacos_retunegan_tpu_torch.parallel import make_mesh, shard_params_tp
+    mesh = make_mesh(None, k)
+    model = weights.seeded_init(Tacotron(pcfg), seed)
+    state = A.TrainState(0, model, A.make_optimizer(pcfg, model), current_shard())
+    shard_params_tp(mesh, model, state.opt)
+    with FlopCounterMode(display=False) as fc:
+        A.train_step_hoisted(pcfg, state, _local(batch), Draws())
+    return fc.get_total_flops()
+
+
+def tp_clip(grads, sharded_axes, k, max_norm):
+    """``optim.global_norm`` and the clip on this rank's slices of
+    ``grads`` (``sharded_axes``: {index: axis} of the sharded ones) with
+    the model axis of size ``k``: the norm and the whole clipped
+    gradients."""
+    from transtacos_retunegan_tpu_torch.parallel import make_mesh
+    from transtacos_retunegan_tpu_torch.train.optim import clip_by_global_norm_, global_norm
+    mesh = make_mesh(None, k)
+    ts, mask = [], []
+    for i, g in enumerate(grads):
+        t = torch.from_numpy(g.copy())
+        if mesh is not None and i in sharded_axes:
+            n = t.shape[sharded_axes[i]] // k
+            t = t.narrow(sharded_axes[i], mesh.model_index * n, n).contiguous()
+        ts.append(t)
+        mask.append(mesh is not None and i in sharded_axes)
+    norm = global_norm(ts, mesh, mask)
+    clip_by_global_norm_(ts, max_norm, norm)
+    whole = []
+    for i, t in enumerate(ts):
+        if mask[i]:
+            parts = [torch.empty_like(t) for _ in range(k)]
+            dist.all_gather(parts, t, group=mesh.model_group)
+            t = torch.cat(parts, sharded_axes[i])
+        whole.append(t.numpy())
+    return float(norm), whole
+
+
+def tp_gan_steps(pcfg, batches, seed, k):
+    """``gan_steps`` with the model axis of size ``k`` (every vocoder
+    parameter replicated)."""
+    from transtacos_retunegan_tpu_torch.parallel import make_mesh
+    make_mesh(None, k)
+    return gan_steps(pcfg, batches, seed)

@@ -201,11 +201,12 @@ class DeviceResidentData:
 
 
 class ShardedDeviceResidentData(DeviceResidentData):
-    """Rank ``shard.index``'s block of the corpus on its device: the
+    """Data coordinate ``shard.index``'s block of the corpus on its
+    device (the ranks of a model group hold the same block): the
     corpus wrapped to ``ceil(n / count) * count`` rows (the first rows
     again) and cut into ``shard.count`` equal blocks.  ``plan`` yields this
     rank's local indices into its block (``batch_size / count`` per
-    batch) and the gather's loss lengths are maxima over the ranks."""
+    batch) and the gather's loss lengths are maxima over the data group."""
 
     def __init__(self, dataset: AcousticDataset, cfg: Config, shard: Shard,
                  device='cuda', store_dtype: str = 'float16'):
@@ -223,7 +224,7 @@ class ShardedDeviceResidentData(DeviceResidentData):
 
     def _global_max(self, x: torch.Tensor) -> torch.Tensor:
         if self.shard.count > 1:
-            dist.all_reduce(x, op=dist.ReduceOp.MAX)
+            dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self.shard.data_group)
         return x
 
     def plan(self, seed: int = 114514,

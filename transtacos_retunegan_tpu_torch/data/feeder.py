@@ -32,7 +32,7 @@ import numpy as np
 
 from ..audio import features as F
 from ..config import Config
-from ..parallel import rank, world_size
+from ..parallel import data_shards
 from ..text import frontend
 
 
@@ -161,15 +161,16 @@ class DataFeeder(threading.Thread):
                  seed: int = 114514, num_shards: Optional[int] = None,
                  shard_index: Optional[int] = None):
         """``num_shards``/``shard_index``: this process's share of every
-        global batch (its strided members); the process group's size and
-        rank by default."""
+        global batch (its strided members); the data-axis size and this
+        process's data coordinate by default (``parallel.data_shards``)."""
         super().__init__(daemon=True)
         self.dataset = dataset
         self.cfg = cfg
         self.bs = cfg.acoustic.batch_size
         self._order = list(range(len(dataset)))
-        self._pc = world_size() if num_shards is None else num_shards
-        self._pidx = rank() if shard_index is None else shard_index
+        pc, pidx = data_shards()
+        self._pc = pc if num_shards is None else num_shards
+        self._pidx = pidx if shard_index is None else shard_index
         if self.bs % self._pc:
             raise ValueError(f'batch_size {self.bs} not divisible by {self._pc} shards')
         self.batches_per_group = batches_per_group or self.bs

@@ -28,7 +28,7 @@ import numpy as np
 from ..audio import features as F
 from ..audio import transforms as T
 from ..config import Config
-from ..parallel import rank, world_size
+from ..parallel import data_shards
 
 
 class VocoderDataset:
@@ -199,9 +199,10 @@ class VocoderLoader:
                  shard_index: Optional[int] = None, engine: Optional[str] = None):
         """``num_shards``/``shard_index``: this process's share of the data
         (a disjoint stride of the shuffled order and ``batch_size /
-        num_shards`` examples per batch); the process group's size and rank
-        by default.  ``engine``: the Griffin-Lim engine handed on to the
-        dataset (None keeps the dataset's own)."""
+        num_shards`` examples per batch); the data-axis size and this
+        process's data coordinate by default (``parallel.data_shards``).
+        ``engine``: the Griffin-Lim engine handed on to the dataset (None
+        keeps the dataset's own)."""
         if engine is not None:
             if engine not in T.ENGINES:
                 raise ValueError(f'engine {engine!r} not in {T.ENGINES}')
@@ -213,8 +214,9 @@ class VocoderLoader:
         self.num_workers = max(1, num_workers)
         self.queue_size = queue_size
         self.rng = Random(seed)
-        self._pc = world_size() if num_shards is None else num_shards
-        self._pidx = rank() if shard_index is None else shard_index
+        pc, pidx = data_shards()
+        self._pc = pc if num_shards is None else num_shards
+        self._pidx = pidx if shard_index is None else shard_index
         if self._pc > 1:
             if self.bs % self._pc:
                 raise ValueError(f'batch_size {self.bs} not divisible by '

@@ -32,11 +32,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..config import Config
+from ..parallel import reduce_from_model, tp_sharded
 from ..text.symbols import get_vocab_size
 from .decoder import DecoderCell, MemoryLayer, prepare_attention, train_decode
 from .decoder_fast import DecoderCellFast
 from .encoder import CBHG, EncoderSA, var_embed_width
-from .layers import (Conv, ConvStack, Draws, cosine_similarity_matrix,
+from .layers import (Conv, ConvStack, Dense, Draws, cosine_similarity_matrix,
                      gaussian_noise, leaky_relu, sinusoid_table)
 
 
@@ -69,10 +70,10 @@ class Tacotron(nn.Module):
         widths = (hp.n_mel_low, hp.posnet_depth // 4, hp.posnet_depth // 2,
                   hp.posnet_depth)
         for i in range(3):
-            self.add_module(f'posnet{i + 1}', nn.Linear(widths[i], widths[i + 1]))
+            self.add_module(f'posnet{i + 1}', Dense(widths[i], widths[i + 1]))
         g = hp.posnet_ngroup
         for i in range(g):
-            self.add_module(f'posnet4_{i}', nn.Linear(
+            self.add_module(f'posnet4_{i}', Dense(
                 hp.posnet_depth // g, (au.n_freq - 1) // g))
         self.register_buffer('pe_table', torch.from_numpy(sinusoid_table(
             max(au.maxlen_text, au.maxlen_spec), hp.posenc_depth)),
@@ -186,6 +187,21 @@ def _masked_mean(err: torch.Tensor, frame_mask: torch.Tensor) -> torch.Tensor:
     return (err * m).sum() / torch.clamp(denom, min=1.0)
 
 
+def _sum_of_squares(model: nn.Module) -> torch.Tensor:
+    """The sum of squares of every parameter; under tensor parallelism the
+    sharded leaves' squares summed over the model group, each replicated
+    leaf counted once."""
+    sharded = tp_sharded(model)
+    if not sharded:
+        flat = torch.cat([p.reshape(-1) for p in model.parameters()])
+        return torch.sum(flat * flat)
+    named = list(model.named_parameters())
+    rep = torch.cat([p.reshape(-1) for n, p in named if n not in sharded])
+    part = torch.cat([p.reshape(-1) for n, p in named if n in sharded])
+    shard = next(iter(sharded.values()))[1]
+    return torch.sum(rep * rep) + reduce_from_model(torch.sum(part * part), shard)
+
+
 def compute_losses(out: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
                    cfg: Config, model: nn.Module) -> Dict[str, torch.Tensor]:
     """The training loss and its terms, as the JAX ``compute_losses``.
@@ -197,7 +213,8 @@ def compute_losses(out: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
     the fusenet losses are unmasked MSEs; the similarity terms weigh the
     off-diagonal embedding cosine similarities; the stop loss is the
     stable sigmoid cross entropy of the raw logits; L2 is half the sum of
-    squares of every parameter of ``model``.  The absolute values and the
+    squares of every parameter of ``model`` (its whole leaves under tensor
+    parallelism).  The absolute values and the
     max take JAX's subgradients at 0 (1 and 1/2), so that a stop logit of
     exactly 0 gets JAX's gradient.
     """
@@ -239,8 +256,7 @@ def compute_losses(out: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
           + torch.log1p(torch.exp(-_abs(logits))))
     stop_token_loss = _masked_mean(ce, fmask)
 
-    flat = torch.cat([p.reshape(-1) for p in model.parameters()])
-    reg_loss = torch.sum(flat * flat) / 2.0 * hp.reg_weight
+    reg_loss = _sum_of_squares(model) / 2.0 * hp.reg_weight
 
     loss = (prds_loss + mel_loss + mag_loss + f0_loss + c0_loss + sim_loss
             + stop_token_loss + reg_loss)

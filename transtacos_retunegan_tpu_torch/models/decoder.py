@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..config import Config
-from .layers import Conv, Draws, Prenet, keep_mask, sequence_mask
+from .layers import Conv, Dense, Draws, Prenet, keep_mask, sequence_mask
 
 
 class AttentionParams(NamedTuple):
@@ -61,10 +61,10 @@ class GRUCell(nn.Module):
     def __init__(self, cin: int, hidden: int):
         super().__init__()
         for g in ('ir', 'iz', 'in'):
-            self.add_module(g, nn.Linear(cin, hidden))
+            self.add_module(g, Dense(cin, hidden))
         for g in ('hr', 'hz'):
-            self.add_module(g, nn.Linear(hidden, hidden, bias=False))
-        self.add_module('hn', nn.Linear(hidden, hidden))
+            self.add_module(g, Dense(hidden, hidden, bias=False))
+        self.add_module('hn', Dense(hidden, hidden))
 
     def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         m = self._modules
@@ -173,7 +173,7 @@ class DecoderCell(CellBase):
         self.cfg = cfg
         n_mel, d, h = cfg.audio.n_mel, hp.encoder_depth, hp.decoder_depth
         self.decoder_prenet = Prenet(n_mel, hp.prenet_depths)
-        self.rnn_in_proj = nn.Linear(hp.prenet_depths[-1] + d, h)
+        self.rnn_in_proj = Dense(hp.prenet_depths[-1] + d, h)
         for i in range(hp.decoder_layers):
             self.add_module(f'gru_{i}', GRUCell(h, h))
         self.lsa = LSA(h, hp.attention_depth)

@@ -32,13 +32,18 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..config import Config
-from ..parallel import Shard
+from ..parallel import Shard, column_matmul
 from .decoder import AttentionParams, CellBase, teacher_inputs
-from .layers import Conv, Prenet, keep_mask
+from .layers import Conv, Dense, Prenet, keep_mask
 
 
 class FusedGRU(nn.Module):
-    """flax ``GRUCell`` with the three gate matmuls fused per side."""
+    """flax ``GRUCell`` with the three gate matmuls fused per side; under
+    tensor parallelism (``tp``) it holds this rank's columns of ``wi`` and
+    ``wh`` and gathers both products."""
+
+    TP_LEAVES = {'wi': 1, 'wh': 1}
+    tp: Optional[Shard] = None
 
     def __init__(self, cin: int, hidden: int):
         super().__init__()
@@ -48,7 +53,8 @@ class FusedGRU(nn.Module):
         self.bn = nn.Parameter(torch.zeros(hidden))
 
     def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        return gru_fused(h, x @ self.wi + self.bi, h @ self.wh, self.bn)
+        return gru_fused(h, column_matmul(x, self.wi, self.tp) + self.bi,
+                         column_matmul(h, self.wh, self.tp), self.bn)
 
 
 def gru_fused(h, gi, gh, bn):
@@ -92,7 +98,7 @@ class DecoderCellFast(CellBase):
         self.cfg = cfg
         n_mel, d, h, r = cfg.audio.n_mel, hp.encoder_depth, hp.decoder_depth, hp.outputs_per_step
         self.decoder_prenet = Prenet(n_mel, hp.prenet_depths)
-        self.rnn_in_proj = nn.Linear(hp.prenet_depths[-1] + d, h)
+        self.rnn_in_proj = Dense(hp.prenet_depths[-1] + d, h)
         for i in range(hp.decoder_layers):
             self.add_module(f'gru_{i}', FusedGRU(h, h))
         self.lsa = LSAStepFast(h, hp.attention_depth)
@@ -140,7 +146,11 @@ def cell_weights(cell: CellBase) -> Dict[str, object]:
     projection split into its prenet and context rows), ``grus`` [(wi, bi,
     wh, bn)], ``wq``, ``loc`` [kwin, A] (the folded location features),
     ``v`` [A, 1], ``ba`` (the attention bias with the location conv's bias
-    folded in), and the head ``wf``/``bf``, ``ws``/``bs`` [H + D, .]."""
+    folded in), and the head ``wf``/``bf``, ``ws``/``bs`` [H + D, .].
+    Under tensor parallelism the input-feed and GRU matrices are this
+    rank's columns: ``x_tp`` and ``gru_tp`` [(shard, blocks)] say how to
+    gather their products (``parallel.column_matmul``; the stock cell's
+    gates are three blocks split alike, the fused ones one)."""
     m = cell._modules
     pre = [(lin.weight.t(), lin.bias) for lin in m['decoder_prenet'].children()]
     p_out = pre[-1][0].shape[1]
@@ -148,6 +158,7 @@ def cell_weights(cell: CellBase) -> Dict[str, object]:
     lsa = m['lsa']
     if isinstance(cell, DecoderCellFast):
         grus = [(g.wi, g.bi, g.wh, g.bn) for g in cell.grus()]
+        gru_tp = [(g.tp, 1) for g in cell.grus()]
         loc = lsa.loc_conv.weight[:, 0, :].t()
         ba = lsa.attention_bias + lsa.loc_conv.bias
         head = cell.out_projection.weight.t()
@@ -162,6 +173,7 @@ def cell_weights(cell: CellBase) -> Dict[str, object]:
                          torch.cat([gm[k].bias for k in ('ir', 'iz', 'in')]),
                          torch.cat([gm[k].weight.t() for k in ('hr', 'hz', 'hn')], 1),
                          gm['hn'].bias))
+        gru_tp = [(g.ir.tp, 3) for g in cell.grus()]
         conv, w_loc = lsa.location_convolution, lsa.location_layer.weight
         loc = torch.einsum('fik,af->ka', conv.weight, w_loc)
         ba = lsa.attention_bias + w_loc @ conv.bias
@@ -169,6 +181,7 @@ def cell_weights(cell: CellBase) -> Dict[str, object]:
         ws, bs = cell.stop_projection.weight.t(), cell.stop_projection.bias
     return {'prenet': pre, 'wx_p': wx[:p_out], 'wx_c': wx[p_out:],
             'bx': m['rnn_in_proj'].bias, 'grus': grus,
+            'x_tp': m['rnn_in_proj'].tp, 'gru_tp': gru_tp,
             'wq': lsa.query_layer.weight.t(), 'loc': loc,
             'v': lsa.attention_variable, 'ba': ba,
             'wf': wf, 'bf': bf, 'ws': ws, 'bs': bs}
@@ -176,10 +189,11 @@ def cell_weights(cell: CellBase) -> Dict[str, object]:
 
 def _core(w, xp_t, hs, ctx, cum, keys, values, mask):
     """One recurrent step of the hoisted decode."""
-    x = xp_t + ctx @ w['wx_c']
+    x = xp_t + column_matmul(ctx, w['wx_c'], w['x_tp'])
     h_news = []
-    for (wi, bi, wh, bn), h in zip(w['grus'], hs):
-        h_new = gru_fused(h, x @ wi + bi, h @ wh, bn)
+    for (wi, bi, wh, bn), (tp, blocks), h in zip(w['grus'], w['gru_tp'], hs):
+        h_new = gru_fused(h, column_matmul(x, wi, tp, blocks) + bi,
+                          column_matmul(h, wh, tp, blocks), bn)
         h_news.append(h_new)
         x = h_new + x                                       # residual
     kwin = w['loc'].shape[0]
@@ -218,7 +232,8 @@ def hoisted_force_decode(cell: CellBase, cfg: Config, mel_targets: torch.Tensor,
         act = F.relu(act @ lw + lb)         # gradient 0 at 0, as jax.nn.relu
         if keep is not None:
             act = act * keep[i]
-    xp = act @ w['wx_p'] + w['bx']                          # [S, B, H]
+    # one gather of the input projection for all steps under TP
+    xp = column_matmul(act, w['wx_p'], w['x_tp']) + w['bx']   # [S, B, H]
 
     hs = tuple(x_in.new_zeros(b, hp.decoder_depth) for _ in w['grus'])
     ctx, cum = x_in.new_zeros(b, values.shape[-1]), x_in.new_zeros(b, mask.shape[-1])

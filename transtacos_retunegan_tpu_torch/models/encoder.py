@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from ..config import AcousticConfig
 from ..parallel import Shard
 from .decoder import GRUCell
-from .layers import (GFFW, ConvBN, ConvStack, DotAttn, Highway, attn_mask,
+from .layers import (GFFW, ConvBN, ConvStack, Dense, DotAttn, Highway, attn_mask,
                      dropout, leaky_relu, sequence_mask)
 
 ENCODER_DROPOUT = 0.2
@@ -37,7 +37,7 @@ class EncoderSA(nn.Module):
             for h in range(hp.encoder_attn_nhead):
                 self.add_module(f'sa_{i}_{h}', DotAttn(
                     depth, depth, depth // hp.encoder_attn_nhead, depth))
-            self.add_module(f'proj_sa_{i}', nn.Linear(depth, depth))
+            self.add_module(f'proj_sa_{i}', Dense(depth, depth))
             self.add_module(f'gffw_sa_{i}', GFFW(depth, depth, hp.gffw_conv_k))
         if hp.encoder_fusenet:
             pd = hp.var_prednet_depth

@@ -25,7 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..parallel import Shard, all_reduce_stats, shard_draw
+from ..parallel import Shard, all_reduce_stats, copy_to_model, gather_from_model, shard_draw
 
 
 def sinusoid_table(n_position: int, d_hid: int) -> np.ndarray:
@@ -107,6 +107,23 @@ def leaky_relu(x: torch.Tensor, slope: float = 0.01) -> torch.Tensor:
     return F.leaky_relu(x, slope)
 
 
+class Dense(nn.Linear):
+    """flax ``nn.Dense``; under tensor parallelism
+    (``parallel.shard_params_tp`` sets ``tp``) it holds this rank's rows of
+    the weight, the columns of flax's kernel, computes that slice of the
+    product, gathers it over the model group and adds the replicated
+    bias."""
+
+    TP_LEAVES = {'weight': 0}
+    tp: Optional[Shard] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is None:
+            return super().forward(x)
+        y = gather_from_model(F.linear(copy_to_model(x, self.tp), self.weight), self.tp)
+        return y if self.bias is None else y + self.bias
+
+
 class Conv(nn.Module):
     """flax ``nn.Conv(cout, (k,), padding='SAME')`` over ``[B, T, C]``."""
 
@@ -173,9 +190,9 @@ class DotAttn(nn.Module):
     def __init__(self, q_in: int, kv_in: int, attn_dim: int, scale_depth: int):
         super().__init__()
         self.scale_depth = scale_depth
-        self.q = nn.Linear(q_in, attn_dim)
-        self.k = nn.Linear(kv_in, attn_dim)
-        self.v = nn.Linear(kv_in, attn_dim)
+        self.q = Dense(q_in, attn_dim)
+        self.k = Dense(kv_in, attn_dim)
+        self.v = Dense(kv_in, attn_dim)
 
     def forward(self, x, y, mask):
         q, k, v = self.q(x), self.k(y), self.v(y)

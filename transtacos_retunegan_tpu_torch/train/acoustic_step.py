@@ -25,6 +25,15 @@ step is the global batch's.  ``infer_step`` takes no shard: it is local.
 The explicit all-reduce (not a ``DistributedDataParallel`` wrapper) also
 serves ``train_step_hoisted``, whose backward is a plain ``.backward()``
 as well, and keeps the ranks' parameters bitwise equal.
+
+Under tensor parallelism (a model after ``parallel.shard_params_tp``, the
+state's shard with ``model_count > 1``) the forward gathers the sharded
+products over the model group; the gradients are averaged over the data
+group, the clip takes the norm of the whole gradient (``optim.global_norm``
+sums the slices' squares over the model group) and Adam updates this
+rank's slices and their moments.  ``local_model`` gathers a whole model
+for evaluation.
+
 Nothing here waits for the card: the losses are 0-dim device tensors
 (``tfr`` and ``learning_rate`` are host floats).
 """
@@ -42,7 +51,8 @@ from ..models.acoustic import Tacotron, compute_losses, posnet_apply
 from ..models.decoder_fast import hoisted_force_decode
 from ..models.layers import Draws
 from ..ops.fused_decoder import fold_params, fused_decode_full
-from ..parallel import Shard, all_reduce_grads, mean_over_ranks
+from ..parallel import (Shard, all_reduce_grads, gather_params_tp, mean_over_ranks,
+                        reduce_from_model, tp_sharded)
 from ..serve.pipeline import resolve_device
 from ..weights import seeded_init
 from .optim import clip_by_global_norm_, global_norm, zero_grad_
@@ -115,7 +125,9 @@ def _update(cfg: Config, state: TrainState, losses: Dict[str, torch.Tensor],
     losses['loss'].backward()
     grads = [p.grad for p in params]
     all_reduce_grads(grads, state.shard)
-    gnorm = global_norm(grads)
+    sharded = tp_sharded(state.model)
+    gnorm = global_norm(grads, state.shard,
+                        [n in sharded for n, _ in state.model.named_parameters()])
     clip_by_global_norm_(grads, hp.grad_clip_norm, gnorm)
     lr = noam_lr(state.step, hp)
     for group in state.opt.param_groups:
@@ -201,10 +213,27 @@ def summary_stats(cfg: Config, state: TrainState, batch: Batch,
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
             params, torch.autograd.grad(loss, params, allow_unused=True))]
     all_reduce_grads(grads, state.shard)
+    norms = {n: torch.linalg.vector_norm(g) for n, g in zip(names, grads)}
+    sharded = list(tp_sharded(model))
+    if sharded:                 # whole leaves: the slices' squares summed
+        sq = reduce_from_model(torch.stack([norms[n] ** 2 for n in sharded]), state.shard)
+        norms.update(zip(sharded, torch.sqrt(sq).unbind()))
     return {'mel_outputs': out['mel_outputs'].detach(),
             'mag_outputs': out['mag_outputs'].detach(),
-            'prds_out': out['prds_out'],
-            'grad_norms': {n: torch.linalg.vector_norm(g) for n, g in zip(names, grads)}}
+            'prds_out': out['prds_out'], 'grad_norms': norms}
+
+
+def local_model(cfg: Config, state: TrainState) -> Tacotron:
+    """A model of this process alone with the state's whole parameters and
+    batch statistics (the state's own model unless it is sharded), for
+    evaluation without collectives.  Under tensor parallelism it gathers
+    the leaves over each model group: every rank calls it."""
+    if not tp_sharded(state.model):
+        return state.model
+    params, _ = gather_params_tp(state.model)
+    model = Tacotron(cfg).to(next(state.model.parameters()).device)
+    model.load_state_dict({**params, **state.extra_vars})
+    return model
 
 
 @torch.no_grad()

@@ -13,7 +13,9 @@ of orbax trees, under the JAX package's names and keep counts.
 written under a temporary name and renamed into place.  A state with a
 data-parallel ``shard`` is saved by rank 0 (the ranks' states are equal)
 while every rank waits for it at a barrier; every rank restores from the
-same files.
+same files.  A tensor-parallel acoustic state is gathered over each model
+group before rank 0 writes it, so its file is a one-process run's (each
+resumes the other), and restoring it keeps each rank's slices.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn as nn
 
-from ..parallel import barrier
+from ..parallel import barrier, gather_params_tp, slice_moments, tp_local, tp_sharded
 
 
 def scan_checkpoint(dirpath: str, prefix: str) -> Optional[str]:
@@ -56,22 +58,26 @@ def save_file(path: str, obj) -> None:
 
 
 def _writes(state) -> bool:
-    """Whether this process writes ``state``'s checkpoint: rank 0 of its
-    data-parallel shard, or the one process."""
-    return state.shard is None or state.shard.index == 0
+    """Whether this process writes ``state``'s checkpoint: the one process,
+    or rank 0 of its layout (data and model coordinate 0)."""
+    return state.shard is None or (state.shard.index == 0 and state.shard.model_index == 0)
 
 
 def save_acoustic(run_dir: str, state, keep: int = 1) -> str:
     """Write ``ckpt_`` of ``state`` (an ``acoustic_step.TrainState``) at its
     step; keep the newest ``keep``.  Under the state's shard rank 0 writes
-    and all ranks return when the file is in place."""
+    the whole parameters and moments (gathered under tensor parallelism:
+    every rank calls it) and all ranks return when the file is in place."""
     path = os.path.join(run_dir, f'ckpt_{state.step:08d}')
+    if tp_sharded(state.model):
+        params, opt_state = gather_params_tp(state.model, state.opt)
+    else:
+        params = {n: p.detach() for n, p in state.model.named_parameters()}
+        opt_state = state.opt.state_dict()
     if _writes(state):
         os.makedirs(run_dir, exist_ok=True)
-        save_file(path, {'step': state.step,
-                         'params': {n: p.detach() for n, p in state.model.named_parameters()},
-                         'extra_vars': state.extra_vars,
-                         'opt_state': state.opt.state_dict()})
+        save_file(path, {'step': state.step, 'params': params,
+                         'extra_vars': state.extra_vars, 'opt_state': opt_state})
         prune_old(run_dir, 'ckpt_', keep)
     if state.shard is not None:
         barrier()
@@ -80,13 +86,15 @@ def save_acoustic(run_dir: str, state, keep: int = 1) -> str:
 
 def restore_acoustic(run_dir: str, state):
     """Load the newest ``ckpt_`` into ``state`` in place (model, batch
-    statistics, optimizer, step); None when there is none."""
+    statistics, optimizer, step; this rank's slices of a tensor-parallel
+    model's sharded leaves and moments); None when there is none."""
     path = scan_checkpoint(run_dir, 'ckpt_')
     if path is None:
         return None
     ck = torch.load(path, map_location=_device(state.model))
-    state.model.load_state_dict({**ck['params'], **ck['extra_vars']})
+    state.model.load_state_dict({**tp_local(state.model, ck['params']), **ck['extra_vars']})
     state.opt.load_state_dict(ck['opt_state'])
+    slice_moments(state.model, state.opt)
     state.step = int(ck['step'])
     return state
 

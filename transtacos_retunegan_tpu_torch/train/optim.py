@@ -1,16 +1,30 @@
-"""Gradient helpers shared by the trainers: the global norm, and optax's
+"""Gradient helpers shared by the trainers: the global norm (of the whole
+gradient under tensor parallelism), and optax's
 ``clip_by_global_norm`` (no epsilon on the norm, unlike
 ``torch.nn.utils.clip_grad_norm_``), both without a host sync."""
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import torch
 
+from ..parallel import Shard, reduce_from_model
 
-def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+
+def global_norm(grads: List[torch.Tensor], shard: Optional[Shard] = None,
+                sharded: Sequence[bool] = ()) -> torch.Tensor:
+    """The norm of the whole gradient.  Under tensor parallelism
+    (``shard``) ``sharded[i]`` marks the gradients that are this rank's
+    slice of a leaf: their squares are summed over the model group, and
+    each replicated leaf is counted once."""
+    norms = torch.stack(torch._foreach_norm(grads))
+    if shard is None or shard.model_count == 1 or not any(sharded):
+        return torch.linalg.vector_norm(norms)
+    sq = norms * norms
+    mask = torch.tensor(sharded, dtype=sq.dtype, device=sq.device)
+    part = reduce_from_model((sq * mask).sum(), shard)
+    return torch.sqrt(part + (sq * (1.0 - mask)).sum())
 
 
 def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,

@@ -23,8 +23,18 @@ averaged before the clip; the command starts the N local processes itself,
 or joins the group of a launcher (``torchrun --nproc_per_node N``) or of
 ``--coordinator``/``--num_processes``/``--process_id``.  Rank r trains on
 ``cuda:LOCAL_RANK`` (NCCL; gloo with ``--device cpu``); rank 0 alone
-writes logs, summaries, checkpoints and the eval dump.  ``--model_parallel
-> 1`` (ROADMAP queue 1.7b) is refused.
+writes logs, summaries, checkpoints and the eval dump.
+
+Tensor parallelism: ``--model_parallel k`` (with ``--num_devices N > 1``;
+ignored with one device) lays the N ranks out as N/k data shards times k
+model ranks (``parallel.make_mesh``; a model group is k consecutive ranks
+of one host).  The ranks of a model group train on the same rows, each
+holding ``1/k`` of the leaves the JAX package's ``tp_param_specs`` shards
+(the decoder cell's GRUs and input projection, the attention heads, the
+posnet; biases replicate) and of their Adam moments, and the step is the
+global batch's as with ``--model_parallel 1``.  Checkpoints hold the
+gathered model (a one-process run resumes them, and the reverse); the eval
+dump runs on a gathered model on rank 0 alone.
 
 ``--device_data`` keeps the whole corpus on the device
 (``data/device_data.py``: one upload, each batch gathered there from its
@@ -59,24 +69,22 @@ from ..data.feeder import AcousticDataset, DataFeeder
 from ..data.prefetch import device_batches
 from ..eval.metrics import prds_accuracy
 from ..models.layers import Draws
-from ..parallel import (any_rank, current_shard, is_primary, join_group, replicate,
-                        single_host, start_workers, world_size)
+from ..parallel import (any_rank, check_model_parallel, current_shard, describe,
+                        is_primary, join_group, join_mesh, replicate, shard_params_tp,
+                        single_host, start_workers, tp_sharded)
 from ..serve.pipeline import resolve_device
 from ..text import frontend
 from ..utils.logging import ValueWindow, get_logger, host_rss_gb
 from . import checkpoint as ckpt
-from .acoustic_step import (frozen_stats, hoist_force_eligible, init_state,
+from .acoustic_step import (frozen_stats, hoist_force_eligible, init_state, local_model,
                             summary_stats, train_step, train_step_hoisted)
 
 WIRE_DTYPES = {'float32': None, 'float16': torch.float16, 'bfloat16': torch.bfloat16}
 EXPLODED = 300.0
 
 
-def _refuse_unported(args) -> None:
-    if (getattr(args, 'model_parallel', 1) or 1) > 1:
-        raise SystemExit('--model_parallel > 1 (tensor parallelism) is not ported '
-                         'yet (ROADMAP queue 1.7b); data parallelism is '
-                         '--num_devices')
+def _refuse(args) -> None:
+    check_model_parallel(args)
     if getattr(args, 'device_data', False) and not single_host(args):
         raise SystemExit('--device_data supports single-host runs (one or several '
                          'devices of this machine); runs with ranks on other hosts '
@@ -103,14 +111,15 @@ def _check_finite(losses, model, step: int) -> None:
 
 
 def train(args) -> None:
-    _refuse_unported(args)
+    _refuse(args)
     if start_workers(train, args):
         return
     device = resolve_device(join_group(args, getattr(args, 'device', 'cuda')))
+    mesh = join_mesh(args)
     cfg = Config.load(args.config) if args.config else Config()
-    if cfg.acoustic.batch_size % world_size():
-        raise SystemExit(f'batch_size {cfg.acoustic.batch_size} not divisible by '
-                         f'{world_size()} devices')
+    if mesh is not None and cfg.acoustic.batch_size % mesh.count:
+        raise SystemExit(f'batch_size {cfg.acoustic.batch_size} not divisible by the '
+                         f'{mesh.count} data shards (--num_devices / --model_parallel)')
     if device.type == 'cuda':
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -136,9 +145,15 @@ def train(args) -> None:
     if ckpt.restore_acoustic(args.log_path, state) is not None:
         logger.info(f'resumed from step {state.step}')
     replicate(state.model)
-    if world_size() > 1:
-        logger.info(f'data parallel over {world_size()} processes, '
-                    f'{cfg.acoustic.batch_size // world_size()} rows each')
+    layout = describe(mesh, cfg.acoustic.batch_size // (mesh.count if mesh else 1), 'rows',
+                      args)
+    if layout:
+        logger.info(layout)
+    if mesh is not None and mesh.model_count > 1:
+        shard_params_tp(mesh, state.model, state.opt)
+        held = sum(p.numel() for p in state.model.parameters())
+        logger.info(f'tensor parallel: {len(tp_sharded(state.model))} leaves sharded '
+                    f'{mesh.model_count} ways, {held:,} parameters on each rank')
     draws = make_draws(cfg.audio.randseed + 3 * state.step, device)
 
     feeder = None
@@ -316,21 +331,24 @@ def format_decode_dump(cfg, batch, out) -> list:
 
 @torch.no_grad()
 def _dump_eval(cfg, state, batch, log_path, step, logger, sw):
-    """Eval artifacts of the batch's first item: the teacher-forced
-    forward (fixed noise and dropout seeds, batch statistics left as they
-    were; on every rank), the decoded input, Griffin-Lim wavs of target
-    and predicted mag, alignment and spectrogram plots (rank 0)."""
+    """Eval artifacts of the batch's first item, on rank 0 alone with a
+    local model (gathered under tensor parallelism) and no shard, so that
+    it makes no collective: the teacher-forced forward of this rank's rows
+    (fixed noise and dropout seeds, batch statistics left as they were),
+    the decoded input, Griffin-Lim wavs of target and predicted mag,
+    alignment and spectrogram plots."""
     from ..audio import features as F
+    model = local_model(cfg, state)        # every rank: a gather under TP
+    if not is_primary():
+        return
     device = batch['text'].device
     batch = {k: v.float() if v.dtype in (torch.float16, torch.bfloat16) else v
              for k, v in batch.items()}
-    with frozen_stats(state.model):
-        out = state.model(batch['text'], batch['text_lengths'], batch['prds'],
-                          batch['spec_lengths'], batch['mel_targets'],
-                          batch['f0_targets'], batch['c0_targets'], 1.0, train=True,
-                          draws=make_draws(0, device, state.shard))
-    if not is_primary():
-        return
+    with frozen_stats(model):
+        out = model(batch['text'], batch['text_lengths'], batch['prds'],
+                    batch['spec_lengths'], batch['mel_targets'],
+                    batch['f0_targets'], batch['c0_targets'], 1.0, train=True,
+                    draws=make_draws(0, device))
     host = {k: v.cpu().numpy() for k, v in batch.items()}
     out = {k: v.cpu().numpy() for k, v in out.items() if isinstance(v, torch.Tensor)}
     for line in format_decode_dump(cfg, host, out):
@@ -379,7 +397,8 @@ def parser() -> argparse.ArgumentParser:
                    help='data parallelism over N devices, one process each '
                         '(started here unless a launcher or --coordinator did)')
     p.add_argument('--model_parallel', type=int, default=1,
-                   help='1 only (tensor parallelism is ROADMAP queue 1.7b)')
+                   help='tensor parallelism: k ranks share each model (with '
+                        '--num_devices N, k dividing N; ignored on one device)')
     p.add_argument('--coordinator', default=None,
                    help='host:port of rank 0 for a group started elsewhere')
     p.add_argument('--num_processes', type=int, default=None)

@@ -22,10 +22,13 @@ processes itself, or joins the group of a launcher (``torchrun``) or of
 ``--coordinator``/``--num_processes``/``--process_id``.  Rank r trains on
 ``cuda:LOCAL_RANK`` (NCCL; gloo with ``--device cpu``); rank 0 alone
 writes logs, summaries and checkpoints and validates (the eval step takes
-no shard, so it makes no collective).  ``--model_parallel
-> 1`` is refused (ROADMAP queue 1.7b).  ``--device`` defaults to ``cuda``
-and raises without a card.  At ``compute_dtype='float32'`` TF32 is turned
-off for matmuls and convs.
+no shard, so it makes no collective).  ``--model_parallel k`` (with
+``--num_devices N > 1``; ignored with one device) is the JAX package's: the
+mesh is N/k data shards times k ranks and every parameter is replicated,
+so the k ranks of a model group load the same rows and compute the same
+step, and the run is the ``--num_devices N/k`` run.  ``--device``
+defaults to ``cuda`` and raises without a card.  At
+``compute_dtype='float32'`` TF32 is turned off for matmuls and convs.
 
 Usage:
   python -m transtacos_retunegan_tpu_torch.train.train_vocoder \\
@@ -47,8 +50,8 @@ from ..config import Config
 from ..data.prefetch import device_batches
 from ..data.vocoder_data import VocoderDataset, VocoderLoader
 from ..models.precision import resolve_dtype
-from ..parallel import (any_rank, current_shard, is_primary, join_group, replicate,
-                        start_workers, world_size)
+from ..parallel import (any_rank, check_model_parallel, current_shard, describe,
+                        is_primary, join_group, join_mesh, replicate, start_workers)
 from ..serve.pipeline import resolve_device
 from ..utils.logging import get_logger, host_rss_gb
 from . import checkpoint as ckpt
@@ -63,23 +66,17 @@ def _config(args) -> Config:
     return cfg
 
 
-def _refuse_unported(args) -> None:
-    if (getattr(args, 'model_parallel', 1) or 1) > 1:
-        raise SystemExit('--model_parallel > 1 (tensor parallelism) is not ported '
-                         'yet (ROADMAP queue 1.7b); data parallelism is '
-                         '--num_devices')
-
-
 def train(args) -> None:
-    _refuse_unported(args)
+    check_model_parallel(args)
     if start_workers(train, args):
         return
     device = resolve_device(join_group(args, getattr(args, 'device', 'cuda')))
+    mesh = join_mesh(args)
     cfg = _config(args)
     hv = cfg.vocoder
-    if hv.batch_size % world_size():
-        raise SystemExit(f'batch_size {hv.batch_size} not divisible by '
-                         f'{world_size()} devices')
+    if mesh is not None and hv.batch_size % mesh.count:
+        raise SystemExit(f'batch_size {hv.batch_size} not divisible by the {mesh.count} '
+                         'data shards (--num_devices / --model_parallel)')
     if device.type == 'cuda' and resolve_dtype(hv.compute_dtype) is None:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -120,9 +117,10 @@ def train(args) -> None:
         noise.manual_seed(cfg.audio.randseed + state.step)
     replicate(state.generator)
     replicate(state.discriminators)
-    if world_size() > 1:
-        logger.info(f'data parallel over {world_size()} processes, '
-                    f'{loader.bs} examples each')
+    layout = describe(mesh, loader.bs, 'examples', args)
+    if layout:
+        logger.info(layout + (' (every parameter replicated)'
+                              if mesh and mesh.model_count > 1 else ''))
 
     prefetch = getattr(args, 'prefetch', 2)
     step = state.step
@@ -255,7 +253,8 @@ def parser() -> argparse.ArgumentParser:
                    help='data parallelism over N devices, one process each '
                         '(started here unless a launcher or --coordinator did)')
     p.add_argument('--model_parallel', type=int, default=1,
-                   help='1 only (tensor parallelism is ROADMAP queue 1.7b)')
+                   help='k ranks per data shard, every parameter replicated '
+                        '(the --num_devices N/k run; ignored on one device)')
     p.add_argument('--coordinator', default=None,
                    help='host:port of rank 0 for a group started elsewhere')
     p.add_argument('--num_processes', type=int, default=None)

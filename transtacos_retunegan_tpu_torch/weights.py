@@ -49,22 +49,40 @@ def flatten(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()
     return out
 
 
-def _convert(module: nn.Module, path: Tuple[str, ...],
-             leaf: np.ndarray) -> Tuple[str, np.ndarray]:
-    name = path[-1]
+def _perm(module: nn.Module, parent: Tuple[str, ...], name: str,
+          ndim: int) -> Optional[Tuple[int, ...]]:
+    """The axes of a flax leaf in the port's layout (``torch =
+    flax.transpose(perm)``), None for a leaf copied as is."""
     if name == 'kernel':
-        name = 'weight'
-        leaf = leaf.T if leaf.ndim == 2 else leaf.transpose(2, 1, 0)
-    elif name == 'v' and leaf.ndim == 4:
-        leaf = leaf.transpose(3, 2, 0, 1)
-    elif name == 'v' and leaf.ndim == 3:
+        return (1, 0) if ndim == 2 else (2, 1, 0)
+    if name == 'v' and ndim == 4:
+        return (3, 2, 0, 1)
+    if name == 'v' and ndim == 3:
         try:
-            owner = module.get_submodule('.'.join(path[:-1]))
+            owner = module.get_submodule('.'.join(parent))
         except AttributeError:
             owner = None                  # reported as unconsumed below
-        transposed = isinstance(owner, WNConvTranspose)
-        leaf = leaf.transpose(1, 2, 0) if transposed else leaf.transpose(2, 1, 0)
+        return (1, 2, 0) if isinstance(owner, WNConvTranspose) else (2, 1, 0)
+    return None
+
+
+def _convert(module: nn.Module, path: Tuple[str, ...],
+             leaf: np.ndarray) -> Tuple[str, np.ndarray]:
+    perm = _perm(module, path[:-1], path[-1], leaf.ndim)
+    name = 'weight' if path[-1] == 'kernel' else path[-1]
+    if perm is not None:
+        leaf = leaf.transpose(perm)
     return '.'.join(path[:-1] + (name,)), leaf
+
+
+def flax_layout(module: nn.Module, key: str,
+                ndim: int) -> Tuple[str, Optional[Tuple[int, ...]]]:
+    """The inverse of ``_convert`` for one parameter of ``module``: its
+    flax path (``/``-joined) and the permutation ``perm`` with ``torch
+    leaf = flax leaf.transpose(perm)`` (None: the same layout)."""
+    *parent, name = key.split('.')
+    flax_name = 'kernel' if name == 'weight' else name
+    return '/'.join(parent + [flax_name]), _perm(module, tuple(parent), flax_name, ndim)
 
 
 def from_flax(module: nn.Module, tree: Dict[str, Any],
