@@ -88,9 +88,13 @@ exit:
    the group (the all-reduce's own cost); (ii) two spawned processes in a
    gloo group on ``cuda:0``, each on half of the global batch (8 rows):
    the losses and the averaged gradients against this process's step on
-   the whole batch, in float32 (``DP_ACOUSTIC_TOL``, ``DP_GAN_TOL``) and
-   in float64 (``DP_F64_TOL``), the ranks' parameters bit for bit after
-   timed float32 steps, and the two-rank step times;
+   the whole batch, in float32 (the acoustic step held to
+   ``DP_ACOUSTIC_TOL``; the GAN step's figure printed beside
+   ``DP_GAN_TOL``) and in float64 (``DP_F64_TOL``); the float32 GAN step
+   (deterministic algorithms) against this process's step on the same two
+   half-batches, summed in rank order (``paired_ranks``; ``DP_PAIR_TOL``);
+   the ranks' parameters bit for bit after timed float32 steps, and the
+   two-rank step times;
    (iii) ``Synthesizer(devices=['cuda:0', 'cuda:0'])`` (``--dp 2`` on one
    card): with the launch counters at 0, cohorts of 8 texts, one
    ``decode_full`` launch per replica, bit for bit as one replica at 4
@@ -121,6 +125,18 @@ exit:
    the gathered checkpoint of the two ranks served by a ``Synthesizer``
    with the launch counters at 0 (one ``decode_full`` launch, a finite
    wav).
+12. Run dirs at the default ``Config()``: (i) ``serve.app``'s ``start()``
+   on the card with ``--acoustic_dir`` on phase 8's run and
+   ``--vocoder_dir`` on phase 7's, one ``GET /synth`` with the launch
+   counters at 0 (one ``decode_full`` launch), its WAV bit for bit as the
+   same checkpoints loaded by hand; (ii) phase 8's run exported in the
+   JAX package's layout with ``weights.to_flax`` (as
+   ``export_jax_run.py`` writes a JAX run, Adam's moments included),
+   imported by ``tools/import_jax_run.py`` (the checkpoint bit for bit as
+   the original), resumed by ``train_acoustic`` for 2 steps beside a copy
+   of the unconverted run (the first step's losses within
+   ``RESUME_TOL``), then served through ``--acoustic_dir`` (one
+   ``decode_full`` launch).
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
@@ -137,6 +153,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -1455,9 +1472,9 @@ def loader_times(dataset, batch_size: int, workers: int):
     return first, cached
 
 
-def vocoder_training(device):
-    """Phase 7."""
-    import tempfile
+def vocoder_training(device, base: str):
+    """Phase 7; its corpus and run dir stay in ``base`` (phase 12 serves
+    the run)."""
     from transtacos_retunegan_tpu_torch.config import Config
     from transtacos_retunegan_tpu_torch.data.vocoder_data import VocoderDataset
     from transtacos_retunegan_tpu_torch.tools.tone_corpus import write_corpus
@@ -1467,21 +1484,20 @@ def vocoder_training(device):
         f'B={hv.batch_size}, segment {au.segment_size}, discriminator width '
         f'{hv.disc_width_mult}, {len(hv.multi_stft_params)} STFT resolutions, '
         f'd_train_times={hv.d_train_times}, {hv.compute_dtype} (TF32 off)')
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        lengths = write_corpus(f'{tmp}/corpus', au, TRAIN_UTTS, TEST_UTTS, seed=SEED)
-        log(f'  tone corpus: {TRAIN_UTTS} + {TEST_UTTS} utterances, '
-            f'{sum(lengths) / au.sample_rate:.1f} s of audio, written in '
-            f'{time.perf_counter() - t0:.1f} s')
-        training_run(f'{tmp}/corpus', f'{tmp}/run')
+    t0 = time.perf_counter()
+    lengths = write_corpus(f'{base}/corpus', au, TRAIN_UTTS, TEST_UTTS, seed=SEED)
+    log(f'  tone corpus: {TRAIN_UTTS} + {TEST_UTTS} utterances, '
+        f'{sum(lengths) / au.sample_rate:.1f} s of audio, written in '
+        f'{time.perf_counter() - t0:.1f} s')
+    training_run(f'{base}/corpus', f'{base}/run')
 
-        per_batch = loader_times(VocoderDataset('train', f'{tmp}/corpus', cfg),
-                                 hv.batch_size, hv.num_workers)
-        # the fixed batch, its items built in order (the loader's threads
-        # draw the augmentation's random numbers in the order they run)
-        ds = VocoderDataset('train', f'{tmp}/corpus', cfg)
-        rows = [ds[i] for i in range(hv.batch_size)]
-        items = {k: np.stack([r[k] for r in rows]) for k in rows[0]}
+    per_batch = loader_times(VocoderDataset('train', f'{base}/corpus', cfg),
+                             hv.batch_size, hv.num_workers)
+    # the fixed batch, its items built in order (the loader's threads
+    # draw the augmentation's random numbers in the order they run)
+    ds = VocoderDataset('train', f'{base}/corpus', cfg)
+    rows = [ds[i] for i in range(hv.batch_size)]
+    items = {k: np.stack([r[k] for r in rows]) for k in rows[0]}
     batch = {k: torch.from_numpy(v).to(device) for k, v in items.items()}
 
     ms, mstft, mem = gan_step_times(cfg, device, batch, GAN_TIMED, GAN_WARM)
@@ -1808,9 +1824,10 @@ def served_from_checkpoint(fd, run_dir: str, device):
     return launches
 
 
-def acoustic_training(fd, device):
-    """Phase 8; returns the kernel launches of its served request."""
-    import tempfile
+def acoustic_training(fd, device, base: str):
+    """Phase 8; returns the kernel launches of its served request.  Its
+    corpus and run dir stay in ``base`` (phase 12 resumes and serves the
+    run)."""
     from transtacos_retunegan_tpu_torch.config import Config
     cfg = Config()
     hp = cfg.acoustic
@@ -1827,21 +1844,20 @@ def acoustic_training(fd, device):
         return out
 
     part(fast_cell_decode, fd, device)
-    with tempfile.TemporaryDirectory() as tmp:
-        data_dir, ds = part(acoustic_corpus, f'{tmp}/corpus', cfg)
-        first, cached = loader_time(ds, cfg)
-        rows = sorted(range(len(ds)), key=ds.frame_len)[-hp.batch_size:]
-        batch_np = fixed_batch(ds, cfg, rows)
-        n, t = batch_np['text'].shape[1], batch_np['mel_targets'].shape[1]
-        log(f'  fixed batch (the {hp.batch_size} longest): text padded to N={n}, frames to '
-            f'T={t}, T/r={t // hp.outputs_per_step} decode steps; loader, ms per batch of '
-            f'{hp.batch_size}: {first:.1f} from disk, {cached:.2f} cached')
-        for k in fd.LAUNCHES:
-            fd.LAUNCHES[k] = 0
-        part(acoustic_cli_run, data_dir, f'{tmp}/run')
-        if any(fd.LAUNCHES.values()):
-            raise AssertionError(f'training launched a serving kernel: {fd.LAUNCHES}')
-        launches = part(served_from_checkpoint, fd, f'{tmp}/run', device)
+    data_dir, ds = part(acoustic_corpus, f'{base}/corpus', cfg)
+    first, cached = loader_time(ds, cfg)
+    rows = sorted(range(len(ds)), key=ds.frame_len)[-hp.batch_size:]
+    batch_np = fixed_batch(ds, cfg, rows)
+    n, t = batch_np['text'].shape[1], batch_np['mel_targets'].shape[1]
+    log(f'  fixed batch (the {hp.batch_size} longest): text padded to N={n}, frames to '
+        f'T={t}, T/r={t // hp.outputs_per_step} decode steps; loader, ms per batch of '
+        f'{hp.batch_size}: {first:.1f} from disk, {cached:.2f} cached')
+    for k in fd.LAUNCHES:
+        fd.LAUNCHES[k] = 0
+    part(acoustic_cli_run, data_dir, f'{base}/run')
+    if any(fd.LAUNCHES.values()):
+        raise AssertionError(f'training launched a serving kernel: {fd.LAUNCHES}')
+    launches = part(served_from_checkpoint, fd, f'{base}/run', device)
     batch = {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in batch_np.items()}
     times = part(acoustic_step_times, cfg, device, batch)
     log(f'  host loader: {cached:.2f} ms per cached batch against a '
@@ -1849,7 +1865,7 @@ def acoustic_training(fd, device):
     part(acoustic_profile, cfg, device, batch)
     part(acoustic_descent, cfg, device, batch)
     part(acoustic_card_vs_cpu, cfg, device, batch_np)
-    return launches
+    return launches, data_dir
 
 
 # Data parallelism (phase 9): the global batches at the default Config
@@ -1869,8 +1885,16 @@ DP_FRAMES, DP_TEXT = 240, 48
 # float32: half a batch runs other cuBLAS/cuDNN algorithms, and leaves that
 # sum terms which cancel (the posnet's first bias, the weight-norm gains)
 # move by a few 1e-4 of their norm with the summation order; in float64
-# the same comparison checks the data-parallel arithmetic alone
-DP_ACOUSTIC_TOL, DP_GAN_TOL, DP_F64_TOL = 1e-3, 1e-3, 1e-5
+# the same comparison checks the data-parallel arithmetic alone.  The GAN
+# step has a leaf that is one scalar summing 131,072 terms which cancel
+# (``WNConv_4.b``): its float32 rounding is of order eps x the sum of
+# their magnitudes, which read up to 7e-3 of the leaf's norm against the
+# whole batch, so no bound on that comparison is sound.  The two float32
+# ranks' GAN step is held instead to this process's step on the same two
+# half-batches (``paired_ranks``: the same algorithms, the same two-term
+# sum), within DP_PAIR_TOL; the whole batch's figure is printed beside
+# DP_GAN_TOL.
+DP_ACOUSTIC_TOL, DP_GAN_TOL, DP_F64_TOL, DP_PAIR_TOL = 1e-3, 1e-3, 1e-5, 1e-6
 DP_TIMED, DP_WARM = 5, 1
 DP_TIMEOUT_S = 600
 
@@ -1936,28 +1960,104 @@ def acoustic_first_step(cfg, device, dtype, acoustic, keep, shard=None):
                    {k: float(v) for k, v in losses.items()})
 
 
-def dp_first_steps(cfg, device, dtype, acoustic, keep, gan):
-    """``acoustic_first_step`` and this process's share of one GAN step
-    from SEED in ``dtype`` with the global batch's noise.  Returns the two
-    states and each step's averaged gradients and losses."""
-    from transtacos_retunegan_tpu_torch.parallel import current_shard, process_shard
+def gan_first_step(cfg, device, dtype, gan, shard):
+    """One GAN step from SEED in ``dtype`` on ``shard``'s rows of the
+    global batch ``gan`` (all of them without a shard) with the global
+    batch's noise, both optimizers primed.  Returns the state and the
+    averaged gradients and losses."""
     from transtacos_retunegan_tpu_torch.train import vocoder_step as V
-    state, grads = acoustic_first_step(cfg, device, dtype, acoustic, keep)
-    out = {'acoustic': grads}
-    gst = V.init_gan_state(cfg, SEED, device, current_shard())
+    gst = V.init_gan_state(cfg, SEED, device, shard)
     gst.generator.to(dtype)
     gst.discriminators.to(dtype)
     primed(gst.gen_opt)
     primed(gst.disc_opt)
-    gsl = process_shard(cfg.vocoder.batch_size)
+    b = cfg.vocoder.batch_size
+    rows = (slice(None) if shard is None else
+            slice(shard.index * b // shard.count, (shard.index + 1) * b // shard.count))
     noise = drawn_noise(cfg, gst.generator, local_batch(gan, slice(None), device, dtype), SEED)
-    _, m = V.gan_train_step(cfg, gst, local_batch(gan, gsl, device, dtype),
-                            [n[gsl].to(device, dtype) for n in noise], 4)
+    _, m = V.gan_train_step(cfg, gst, local_batch(gan, rows, device, dtype),
+                            [n[rows].to(device, dtype) for n in noise], 4)
     params = list(gst.generator.named_parameters()) + [
         (f'disc.{n}', p) for n, p in gst.discriminators.named_parameters()]
-    out['gan'] = ({n: p.grad.cpu().clone() for n, p in params},
-                  {k: float(v) for k, v in m.items()})
+    return gst, ({n: p.grad.cpu().clone() for n, p in params},
+                 {k: float(v) for k, v in m.items()})
+
+
+def dp_first_steps(cfg, device, dtype, acoustic, keep, gan):
+    """``acoustic_first_step`` and ``gan_first_step`` (under deterministic
+    algorithms) of this process's share.  Returns the two states and each
+    step's averaged gradients and losses."""
+    from transtacos_retunegan_tpu_torch.parallel import current_shard
+    from transtacos_retunegan_tpu_torch.utils.determinism import deterministic
+    state, grads = acoustic_first_step(cfg, device, dtype, acoustic, keep)
+    out = {'acoustic': grads}
+    with deterministic():
+        gst, out['gan'] = gan_first_step(cfg, device, dtype, gan, current_shard())
     return state, gst, out
+
+
+class PairRank:
+    """Rank ``rank`` of two threads of this process that stand in for a
+    gloo group of two (``paired_ranks``)."""
+
+    def __init__(self, rank: int):
+        self.rank = rank
+
+
+def paired_ranks(fn):
+    """``fn(shard)`` on two threads of this process, as data shards 0 and 1
+    of a group of two whose all-reduce sums the two ranks' tensors in rank
+    order, each rank then holding the sum: what gloo's all-reduce of two
+    gives (one addition per element, which commutes exactly).  Each rank
+    runs the same kernels as a process of its own on its half-batch.
+    Returns the two results in rank order."""
+    import torch.distributed as dist
+    from transtacos_retunegan_tpu_torch.parallel import Shard
+    meet = threading.Barrier(2, timeout=DP_TIMEOUT_S)
+    slots = [None, None]
+
+    def all_reduce(t, op=dist.ReduceOp.SUM, group=None, async_op=False):
+        if not isinstance(group, PairRank) or op != dist.ReduceOp.SUM or async_op:
+            raise AssertionError('only the sum over a paired group is stood in for')
+        slots[group.rank] = t
+        meet.wait()
+        total = slots[0] + slots[1]
+        meet.wait()
+        t.copy_(total)
+
+    def rank(r):
+        try:
+            return fn(Shard(r, 2, data_group=PairRank(r)))
+        except BaseException:
+            meet.abort()
+            raise
+
+    saved = dist.all_reduce, dist.get_backend
+    dist.all_reduce, dist.get_backend = all_reduce, lambda group=None: 'gloo'
+    try:
+        with ThreadPoolExecutor(2) as pool:
+            futs = [pool.submit(rank, r) for r in range(2)]
+            return [f.result() for f in futs]
+    finally:
+        dist.all_reduce, dist.get_backend = saved
+
+
+def paired_gan_step(device):
+    """Phase 9 (ii)'s float32 GAN reference: ``gan_first_step`` of the two
+    half-batches in this process (``paired_ranks``), under deterministic
+    algorithms, as the two ranks run it; rank 0's averaged gradients and
+    losses."""
+    from transtacos_retunegan_tpu_torch.config import Config
+    from transtacos_retunegan_tpu_torch.utils.determinism import deterministic
+    cfg = Config()
+    _, _, gan = dp_batches(cfg)
+    with deterministic():
+        out = paired_ranks(lambda shard: gan_first_step(cfg, device, torch.float32, gan,
+                                                        shard)[1])
+    if not (out[0][1] == out[1][1] and all(torch.equal(g, out[1][0][n])
+                                           for n, g in out[0][0].items())):
+        raise AssertionError('the paired ranks disagree with each other')
+    return out[0]
 
 
 def times(step, timed: int, warm: int):
@@ -2166,21 +2266,35 @@ def nccl_world_one(card: str, device):
 
 def gloo_two_ranks(card: str, device):
     """Phase 9 (ii): two spawned ranks in a gloo group on cuda:0 against
-    this process's step on the whole batch."""
+    this process's step on the whole batch, and their float32 GAN step
+    against this process's step on the same two half-batches."""
     import tempfile
     t0 = time.perf_counter()
     ref = dp_steps(device)
     ref_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pair = paired_gan_step(device)
+    pair_s = time.perf_counter() - t0
     with tempfile.TemporaryDirectory() as tmp:
         ranks, wall = spawn_gloo_ranks(tmp, device, dp_steps)
     ok = ranks[0]['hash'] == ranks[1]['hash']
     for name, tol in (('acoustic', DP_ACOUSTIC_TOL), ('gan', DP_GAN_TOL),
                       ('acoustic64', DP_F64_TOL), ('gan64', DP_F64_TOL)):
         wl, wg, within_tol = dp_errors(ranks[0][name], ref[name], tol)
-        ok = ok and within_tol
+        gate = name != 'gan'
+        ok = ok and (within_tol or not gate)
         log(f'  (ii) gloo, 2 ranks on one card, half the batch each, {name} step against '
             f'one process on the whole batch: worst loss {wl[0]} {wl[1]:.2e} relative, worst '
-            f'gradient leaf {wg[0]} {wg[1]:.2e} of its norm (tol {tol:.0e})')
+            f'gradient leaf {wg[0]} {wg[1]:.2e} of its norm (tol {tol:.0e}'
+            + ('' if gate else ': printed, not held; see the paired half-batches') + ')')
+    wl, wg, within_tol = dp_errors(ranks[0]['gan'], pair, DP_PAIR_TOL)
+    same = ranks[0]['gan'][1] == pair[1] and all(
+        torch.equal(g, pair[0][n]) for n, g in ranks[0]['gan'][0].items())
+    ok = ok and within_tol
+    log(f'  (ii) gan step of the 2 ranks against this process on the same two half-batches '
+        f'(the same algorithms, the sum in rank order; deterministic algorithms): worst loss '
+        f'{wl[0]} {wl[1]:.2e} relative, worst gradient leaf {wg[0]} {wg[1]:.2e} of its norm '
+        f'(tol {DP_PAIR_TOL:.0e}); bit for bit: {same} ({pair_s:.1f} s)')
     for name in ('acoustic', 'gan'):
         log(f'  (ii) {name} step ms (CUDA events, {DP_TIMED} after {DP_WARM}): one process, '
             f'the whole batch: {quartiles(ref[name + "_ms"])}; rank 0 of 2 on one card, half '
@@ -2625,10 +2739,207 @@ def tensor_parallel(fd, card: str, device):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: run dirs on the card (the server's --acoustic_dir/--vocoder_dir;
+# a run carried over in the JAX package's layout)
+# ---------------------------------------------------------------------------
+
+RESUMED_STEPS = 2
+RESUME_TOL = 1e-6          # the converted run's first resumed losses, relative
+
+
+def app_request(fd, argv, text: str, device):
+    """``serve.app``'s ``start()`` with ``argv`` on ``device`` (the webui
+    role on an ephemeral port, one request at a time), then one ``GET
+    /synth`` with the launch counters at 0 just before it.  Returns the
+    WAV's samples, the launches and the request's ms."""
+    from scipy.io import wavfile
+    from transtacos_retunegan_tpu_torch.serve import app
+    (server,) = app.start(app.parse_args(
+        ['--device', str(device), '--mode', 'webui', '--port', '0', '--host', '127.0.0.1',
+         '--batch_window_ms', '0', *argv]))
+    try:
+        url = (f'http://127.0.0.1:{server.server_address[1]}/synth?text='
+               + urllib.request.quote(text))
+        for k in fd.LAUNCHES:
+            fd.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(url, timeout=600) as r:
+            body, ctype = r.read(), r.headers['Content-Type']
+        ms = 1e3 * (time.perf_counter() - t0)
+        launches = dict(fd.LAUNCHES)
+    finally:
+        server.shutdown()
+        server.server_close()
+    _, wav = wavfile.read(io.BytesIO(body))
+    if ctype != 'audio/wav' or body[:4] != b'RIFF' or wav.dtype != np.float32:
+        raise AssertionError(f'GET /synth did not return a float32 WAV ({ctype})')
+    return wav, launches, ms
+
+
+def port_runs_served(fd, acoustic_run: str, vocoder_run: str, device):
+    """Phase 12 (i): phase 8's acoustic run and phase 7's vocoder run served
+    by the app through ``--acoustic_dir``/``--vocoder_dir``, bit for bit
+    as the same checkpoints loaded by hand (the app's warm-up request
+    first on both sides: it draws the first Griffin-Lim phase)."""
+    from transtacos_retunegan_tpu_torch.config import Config
+    from transtacos_retunegan_tpu_torch.serve.app import WARM_TEXT
+    from transtacos_retunegan_tpu_torch.serve.pipeline import Synthesizer
+    from transtacos_retunegan_tpu_torch.train import checkpoint as ckpt
+    text = REQUESTS[1]
+    wav, launches, ms = app_request(fd, ['--config', acoustic_run, '--acoustic_dir',
+                                         acoustic_run, '--vocoder_dir', vocoder_run],
+                                    text, device)
+    ref = Synthesizer(Config.load(acoustic_run),
+                      acoustic_params=ckpt.load_acoustic_params(acoustic_run),
+                      gen_params=ckpt.load_generator_params(vocoder_run), devices=[device])
+    ref.tts(WARM_TEXT)
+    want = ref.tts(text)
+    same = wav.shape == want.shape and np.array_equal(wav, want)
+    newest = [os.path.basename(ckpt.scan_checkpoint(d, p))
+              for d, p in ((acoustic_run, 'ckpt_'), (vocoder_run, 'g_'))]
+    log(f'  (i) serve.app --acoustic_dir (newest {newest[0]}) --vocoder_dir (newest '
+        f'{newest[1]}): GET '
+        f'/synth?text={text!r} {ms:.1f} ms, {len(wav)} samples, launches {launches}; bit for '
+        f'bit as Synthesizer(acoustic_params=load_acoustic_params(..), '
+        f'gen_params=load_generator_params(..)): {same}')
+    if launches['decode_full'] != 1 or not same or not np.isfinite(wav).all():
+        raise AssertionError('the run dirs did not serve through the app as loaded by hand')
+    return launches
+
+
+def jax_layout_export(run_dir: str, out_dir: str) -> dict:
+    """The newest ``ckpt_`` of a port acoustic run written as
+    ``export_jax_run.py`` writes a JAX run (``weights.to_flax`` of the
+    parameters, the batch statistics and Adam's moments; ``meta.json`` with
+    the step and optax's counts), without JAX."""
+    import shutil
+    from transtacos_retunegan_tpu_torch.config import Config
+    from transtacos_retunegan_tpu_torch.models.acoustic import Tacotron
+    from transtacos_retunegan_tpu_torch.train import checkpoint as ckpt
+    from transtacos_retunegan_tpu_torch.weights import save_npz, to_flax
+    ck = torch.load(ckpt.scan_checkpoint(run_dir, 'ckpt_'), map_location='cpu')
+    with torch.device('meta'):
+        model = Tacotron(Config.load(run_dir))
+    names = [n for n, _ in model.named_parameters()]
+    os.makedirs(out_dir, exist_ok=True)
+    params, stats = to_flax(model, {**ck['params'], **ck['extra_vars']})
+    save_npz(f'{out_dir}/params.npz', params)
+    if stats:
+        save_npz(f'{out_dir}/batch_stats.npz', stats)
+    state = ck['opt_state']['state']
+    for moment, key in (('mu', 'exp_avg'), ('nu', 'exp_avg_sq')):
+        save_npz(f'{out_dir}/adam_{moment}.npz',
+                 to_flax(model, {n: state[i][key] for i, n in enumerate(names)})[0])
+    counts = {float(v['step']) for v in state.values()}
+    if len(counts) != 1:
+        raise AssertionError(f'Adam steps differ over the parameters: {counts}')
+    meta = {'kind': 'acoustic', 'step': int(ck['step']), 'adam_count': int(counts.pop()),
+            'lr_count': int(ck['step'])}
+    with open(f'{out_dir}/meta.json', 'w') as f:
+        json.dump(meta, f)
+    shutil.copyfile(f'{run_dir}/config.json', f'{out_dir}/config.json')
+    return meta
+
+
+def resumed_steps(data_dir: str, run_dir: str):
+    """``train_acoustic`` resumed from ``run_dir`` on the card for
+    RESUMED_STEPS steps; the first step's losses (floats)."""
+    from transtacos_retunegan_tpu_torch.train import checkpoint as ckpt
+    from transtacos_retunegan_tpu_torch.train import train_acoustic as ta
+    real = {'train_step': ta.train_step, 'train_step_hoisted': ta.train_step_hoisted}
+    first = []
+
+    def recording(name):
+        def step(cfg, state, batch, draws):
+            state, losses = real[name](cfg, state, batch, draws)
+            if not first:
+                first.append((name, {k: float(v) for k, v in losses.items()}))
+            return state, losses
+        return step
+
+    start = int(torch.load(ckpt.scan_checkpoint(run_dir, 'ckpt_'), map_location='cpu')['step'])
+    for name in real:
+        setattr(ta, name, recording(name))
+    try:
+        ta.main(['--data_dir', data_dir, '--log_path', run_dir, '--log_interval', '1',
+                 '--summary_interval', '1000', '--checkpoint_interval', '1000',
+                 '--max_steps', str(start + RESUMED_STEPS)])
+    finally:
+        for name, fn in real.items():
+            setattr(ta, name, fn)
+    with open(f'{run_dir}/train.log') as fh:
+        if f'resumed from step {start}' not in fh.read():
+            raise AssertionError(f'{run_dir} did not resume from step {start}')
+    return start, first[0]
+
+
+def converted_run(fd, data_dir: str, acoustic_run: str, base: str, device):
+    """Phase 12 (ii): phase 8's run exported in the JAX layout
+    (``jax_layout_export``), imported (``tools/import_jax_run.py``),
+    resumed by ``train_acoustic`` beside a copy of the unconverted run
+    (the first resumed step's losses within RESUME_TOL), then served by
+    the app through ``--acoustic_dir``."""
+    import shutil
+    from transtacos_retunegan_tpu_torch.tools.import_jax_run import import_run
+    from transtacos_retunegan_tpu_torch.train import checkpoint as ckpt
+    t0 = time.perf_counter()
+    meta = jax_layout_export(acoustic_run, f'{base}/exported')
+    written = import_run(f'{base}/exported', f'{base}/converted')
+    convert_s = time.perf_counter() - t0
+    original = torch.load(ckpt.scan_checkpoint(acoustic_run, 'ckpt_'), map_location='cpu')
+    back = torch.load(written, map_location='cpu')
+    same_ckpt = (back['step'] == original['step']
+                 and all(torch.equal(v, original['params'][k])
+                         for k, v in back['params'].items())
+                 and all(torch.equal(back['opt_state']['state'][i][f],
+                                     original['opt_state']['state'][i][f])
+                         for i in original['opt_state']['state']
+                         for f in ('step', 'exp_avg', 'exp_avg_sq')))
+    os.makedirs(f'{base}/unconverted')
+    for f in (ckpt.scan_checkpoint(acoustic_run, 'ckpt_'), f'{acoustic_run}/config.json'):
+        shutil.copy(f, f'{base}/unconverted')
+    t0 = time.perf_counter()
+    start, (kind_a, ref) = resumed_steps(data_dir, f'{base}/unconverted')
+    _, (kind_b, got) = resumed_steps(data_dir, f'{base}/converted')
+    resume_s = time.perf_counter() - t0
+    rel = {k: abs(got[k] - v) / max(abs(v), 1e-12) for k, v in ref.items()}
+    worst = max(rel, key=rel.get)
+    log(f'  (ii) phase 8\'s run exported in the JAX layout (to_flax, moments included: '
+        f'{meta}) and imported in {convert_s:.1f} s: the checkpoint equals the original bit '
+        f'for bit: {same_ckpt}; train_acoustic resumed both from step {start} for '
+        f'{RESUMED_STEPS} steps ({kind_a}/{kind_b}, {resume_s:.1f} s): first step losses '
+        f'worst {worst} {rel[worst]:.2e} relative (tol {RESUME_TOL:.0e}), loss '
+        f'{got["loss"]:.6f} against {ref["loss"]:.6f}')
+    wav, launches, ms = app_request(fd, ['--config', f'{base}/converted', '--acoustic_dir',
+                                         f'{base}/converted'], REQUESTS[0], device)
+    log(f'  (ii) serve.app --acoustic_dir on the converted run (newest '
+        f'{os.path.basename(ckpt.scan_checkpoint(f"{base}/converted", "ckpt_"))}): GET /synth '
+        f'{ms:.1f} ms, {len(wav)} samples, launches {launches}')
+    if not (same_ckpt and rel[worst] <= RESUME_TOL and kind_a == kind_b
+            and launches['decode_full'] == 1 and len(wav) and np.isfinite(wav).all()):
+        raise AssertionError('the converted run did not resume or serve as the original')
+    return launches
+
+
+def run_dirs(fd, runs: dict, base: str, device):
+    """Phase 12; returns the launches of its two served requests."""
+    a = port_runs_served(fd, runs['acoustic'], runs['vocoder'], device)
+    b = converted_run(fd, runs['data'], runs['acoustic'], base, device)
+    return {k: a[k] + b[k] for k in a}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 1
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_') as work:
+        return phases(work)
+
+
+def phases(work: str) -> int:
+    """Every phase and the record; phases 7 and 8 keep their runs in
+    ``work`` for phase 12."""
     from transtacos_retunegan_tpu_torch.ops import build
     from transtacos_retunegan_tpu_torch.ops import fused_decoder as fd
     from transtacos_retunegan_tpu_torch.ops import lsa_kernel as lk
@@ -2678,12 +2989,12 @@ def main() -> int:
 
     log('== phase 7: vocoder training on the card (train_vocoder, default Config)')
     t0 = time.perf_counter()
-    vocoder_training(device)
+    vocoder_training(device, f'{work}/vocoder')
     log(f'  phase 7 took {time.perf_counter() - t0:.1f} s; it launches none of the kernels')
 
     log('== phase 8: acoustic training on the card (train_acoustic, default Config)')
     t0 = time.perf_counter()
-    served = acoustic_training(fd, device)
+    served, data_dir = acoustic_training(fd, device, f'{work}/acoustic')
     launches = {k: launches[k] + served.get(k, 0) for k in launches}
     log(f'  phase 8 took {time.perf_counter() - t0:.1f} s; training launches none of the '
         f'kernels, its served request {served}; LAUNCHES over the paths of phases 4, 5 and '
@@ -2712,6 +3023,16 @@ def main() -> int:
     launches = {k: launches[k] + served.get(k, 0) for k in launches}
     log(f'  phase 11 took {time.perf_counter() - t0:.1f} s; the TP checkpoint\'s request '
         f'{served}; LAUNCHES over the paths of phases 4, 5 and 8-11: {launches}')
+
+    log('== phase 12: run dirs on the card (serve.app --acoustic_dir/--vocoder_dir; a run '
+        'in the JAX layout imported, resumed and served)')
+    t0 = time.perf_counter()
+    runs = {'acoustic': f'{work}/acoustic/run', 'vocoder': f'{work}/vocoder/run',
+            'data': data_dir}
+    served = run_dirs(fd, runs, f'{work}/run_dirs', device)
+    launches = {k: launches[k] + served.get(k, 0) for k in launches}
+    log(f'  phase 12 took {time.perf_counter() - t0:.1f} s [{card}]; its two requests '
+        f'{served}; LAUNCHES over the paths of phases 4, 5, 8-12: {launches}')
 
     sources = {'decode_step': 'fused_decoder.cu', 'decode_full': 'fused_decoder.cu',
                'lsa_step': 'lsa_step.cu'}

@@ -620,6 +620,37 @@ def test_imported_checkpoint_serves_on_the_card(cuda, tmp_path):
     np.testing.assert_array_equal(wavs[0], wavs[1])
 
 
+def test_run_dir_serves_on_the_card(cuda, tmp_path):
+    """A trainer's run dir served through ``Synthesizer(acoustic_dir=...)``
+    (the app's ``--acoustic_dir``) on the card: one ``decode_full`` launch,
+    and the CPU's wav within 1e-3 (``chip_smoke.py``'s ``SLICE_TOL`` for
+    this configuration on the card against the CPU; float32 throughout, the
+    same Griffin-Lim phase, no stop)."""
+    from transtacos_retunegan_tpu_torch.serve.pipeline import Synthesizer
+    from transtacos_retunegan_tpu_torch.train import checkpoint as ckpt
+    from transtacos_retunegan_tpu_torch.train.acoustic_step import init_state
+    cfg = _small_cfg()
+    state = init_state(cfg, 11, 'cpu')
+    with torch.no_grad():
+        state.model.decoder_cell.stop_projection.bias.fill_(-20.0)
+    ckpt.save_acoustic(str(tmp_path), state)
+    frames = cfg.acoustic.max_iters * cfg.acoustic.outputs_per_step
+    theta = 2 * np.pi * torch.rand(cfg.audio.n_freq, frames,
+                                   generator=torch.Generator().manual_seed(12))
+    wavs = []
+    for device in (cuda, 'cpu'):
+        synth = Synthesizer(cfg, acoustic_dir=str(tmp_path), devices=[device],
+                            infer_dtype='float32')
+        assert torch.equal(synth.acoustic.decoder_cell.stop_projection.bias.cpu(),
+                           torch.full((cfg.acoustic.outputs_per_step,), -20.0))
+        synth.decoder = fd.fold_params(synth.acoustic.decoder_cell, torch.float32)
+        before = fd.LAUNCHES['decode_full']
+        wavs.append(synth.tts_fused('ni3 hao3', theta=theta.to(device)))
+        assert fd.LAUNCHES['decode_full'] == before + (device == cuda)
+    assert wavs[0].shape == wavs[1].shape == (256 * frames,)
+    assert float(np.abs(wavs[0] - wavs[1]).max()) <= 1e-3
+
+
 def test_device_data_on_the_card(cuda, tmp_path):
     """The resident corpus gathers on the card the CPU's batches bit for
     bit, and ``train_acoustic --device_data`` takes 2 steps there."""

@@ -1,12 +1,16 @@
 """Serving CLI of the port, after ``transtacos_retunegan_tpu/serve/app.py``.
 
     python -m transtacos_retunegan_tpu_torch.serve.app \\
-        [--acoustic_npz acoustic.npz --vocoder_npz vocoder.npz] [--mode all]
+        --acoustic_dir runs/acoustic --vocoder_dir runs/vocoder [--mode all]
 
 Modes: ``all`` (default: one process, three reference-compatible ports 5103
 webui, 5104 vocoder, 5105 acoustic) or one role on its reference port (or
-``--port``).  Weights are flax parameter trees saved as ``.npz``
-(``weights.save_npz``); without them the weights are drawn from the seed.
+``--port``).  Weights come from the trainers' run dirs (the newest
+``ckpt_`` / ``g_``; a dir without one keeps the seeded weights, as in the
+JAX package) or from flax parameter trees saved as ``.npz``
+(``--acoustic_npz``/``--vocoder_npz``, ``weights.save_npz``), one source per
+model; without either the weights are drawn from the seed.  ``--config``
+is given explicitly (a run dir is fine), as in the JAX package.
 Micro-batching is on unless ``--batch_window_ms 0``.  Runs on the card
 (``--device cuda``) unless told otherwise; ``--dp N`` serves the batched
 surfaces from N replicas, one per card (``cuda:0`` .. ``cuda:N-1``).
@@ -35,6 +39,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument('--port', type=int, default=None,
                    help='port of a single-role mode (default: its reference port)')
     p.add_argument('--config', default=None, help='config.json, its run dir, or a preset')
+    p.add_argument('--acoustic_dir', default=None, help='acoustic run dir (newest ckpt_)')
+    p.add_argument('--vocoder_dir', default=None, help='vocoder run dir (newest g_)')
     p.add_argument('--acoustic_npz', default=None)
     p.add_argument('--vocoder_npz', default=None)
     p.add_argument('--kanji_table', default=None)
@@ -47,7 +53,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument('--batch_window_ms', type=float, default=6.0,
                    help='micro-batching window; 0 serves one request at a time')
     p.add_argument('--device', default='cuda')
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    for model in ('acoustic', 'vocoder'):
+        if getattr(args, f'{model}_dir') and getattr(args, f'{model}_npz'):
+            p.error(f'--{model}_dir and --{model}_npz both give the {model} weights; '
+                    'pass one')
+    return args
 
 
 def start(args: argparse.Namespace) -> List:
@@ -62,7 +73,8 @@ def start(args: argparse.Namespace) -> List:
     cfg = Config.load(args.config) if args.config else Config()
     synth = Synthesizer(cfg, acoustic_params=args.acoustic_npz,
                         gen_params=args.vocoder_npz, kanji_table=args.kanji_table,
-                        max_iters=args.max_iters, devices=devices)
+                        max_iters=args.max_iters, devices=devices,
+                        acoustic_dir=args.acoustic_dir, vocoder_dir=args.vocoder_dir)
     batching = args.batch_window_ms > 0
     kw = dict(batching=batching, max_batch=args.max_batch,
               batch_window_s=args.batch_window_ms / 1000.0)

@@ -55,6 +55,7 @@ from ..models.generators import make_generator
 from ..models.precision import compute_dtype
 from ..ops.fused_decoder import fold_params, fused_decode_full
 from ..text import frontend
+from ..train import checkpoint as ckpt
 from ..weights import load_flax, load_npz, seeded_init
 
 
@@ -83,13 +84,25 @@ class Synthesizer:
                  kanji_table: Optional[str] = None,
                  max_iters: Optional[int] = None,
                  infer_dtype: str = 'auto',
-                 seed: int = 114514, devices: Sequence = ('cuda',)):
+                 seed: int = 114514, devices: Sequence = ('cuda',),
+                 acoustic_dir: Optional[str] = None, vocoder_dir: Optional[str] = None):
         """``acoustic_params`` / ``gen_params``: a flax param tree (numpy
         leaves), the path of one saved with ``weights.save_npz``, or the
         module's own state dict (torch tensors; an acoustic training
         checkpoint gives one through ``train.checkpoint.load_acoustic_params``);
-        seeded random weights when None.  ``devices``: one replica per entry
-        (replica 0 on the first)."""
+        seeded random weights when None.  ``acoustic_dir`` / ``vocoder_dir``:
+        a trainer's run dir, whose newest ``ckpt_`` / ``g_`` is loaded (the
+        seeded weights stay when it has none), as the JAX constructor's;
+        one model takes a dir or params, not both.  ``devices``: one
+        replica per entry (replica 0 on the first)."""
+        for what, params, run_dir in (('acoustic', acoustic_params, acoustic_dir),
+                                      ('vocoder', gen_params, vocoder_dir)):
+            if params is not None and run_dir:
+                raise ValueError(f'the {what} model takes params or a run dir, not both')
+        if acoustic_dir:
+            acoustic_params = ckpt.restore_acoustic_params(acoustic_dir)
+        if vocoder_dir:
+            gen_params = ckpt.restore_generator_params(vocoder_dir)
         devs = [resolve_device(d) for d in devices]
         self.device = devs[0]
         self.cfg = cfg or Config()

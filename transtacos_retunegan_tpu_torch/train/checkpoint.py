@@ -111,6 +111,13 @@ def load_acoustic_params(path: str) -> Dict[str, torch.Tensor]:
     return {**ck['params'], **ck['extra_vars']}
 
 
+def restore_acoustic_params(run_dir: str) -> Optional[Dict[str, torch.Tensor]]:
+    """Inference: the state dict of the newest ``ckpt_`` in ``run_dir``,
+    None for an empty or missing dir (the server keeps its seeded weights)."""
+    path = scan_checkpoint(run_dir, 'ckpt_')
+    return None if path is None else load_acoustic_params(path)
+
+
 def save_gan(run_dir: str, state, epoch: int, keep: int = 2) -> Tuple[str, str]:
     """Write ``g_``/``do_`` of ``state`` (a ``vocoder_step.GANState``) at
     its step; keep the newest ``keep`` of each.  Under the state's shard
@@ -164,11 +171,15 @@ def load_generator_params(path: str) -> Dict[str, torch.Tensor]:
     return torch.load(path, map_location='cpu')['generator']
 
 
-def restore_generator_params(run_dir: str, generator: nn.Module) -> Optional[nn.Module]:
-    """Inference: the newest ``g_`` into ``generator``, or None."""
+def restore_generator_params(run_dir: str, generator: Optional[nn.Module] = None):
+    """Inference: the generator's state dict of the newest ``g_`` in
+    ``run_dir``, or ``generator`` with those weights loaded when one is
+    given; None for an empty or missing dir."""
     g_path = scan_checkpoint(run_dir, 'g_')
     if g_path is None:
         return None
-    generator.load_state_dict(torch.load(g_path, map_location=_device(generator))
-                              ['generator'])
+    sd = load_generator_params(g_path)
+    if generator is None:
+        return sd
+    generator.load_state_dict(sd)
     return generator

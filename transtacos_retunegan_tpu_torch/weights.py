@@ -1,4 +1,4 @@
-"""Weight bridge: flax param trees (numpy leaves) -> the port's modules.
+"""Weight bridge: flax param trees (numpy leaves) <-> the port's modules.
 
 The port's modules name their children after the flax modules, so a flax
 path ``a/b/kernel`` becomes the state-dict key ``a.b.weight``.  Layouts are
@@ -22,9 +22,10 @@ key, e.g. ``models.discriminators.Discriminators`` for the
 ``{'msd', 'mpd', 'mtd'}`` discriminator tree.
 
 ``from_flax`` raises unless every leaf lands on a parameter of the module
-and every parameter receives a leaf of its shape.  Trees travel between
-the packages as ``.npz`` files keyed by ``/``-joined paths (``save_npz`` /
-``load_npz``), so weights reach the card without JAX.
+and every parameter receives a leaf of its shape; ``to_flax`` maps a state
+dict back to the flax layout (``from_flax(to_flax(sd)) == sd``).  Trees
+travel between the packages as ``.npz`` files keyed by ``/``-joined paths
+(``save_npz`` / ``load_npz``), so weights reach the card without JAX.
 """
 
 from __future__ import annotations
@@ -106,6 +107,28 @@ def from_flax(module: nn.Module, tree: Dict[str, Any],
         raise ValueError(f'flax tree does not fit {type(module).__name__}; '
                          + '; '.join(faults))
     return state
+
+
+def to_flax(module: nn.Module, state_dict: Dict[str, torch.Tensor]
+            ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """The inverse of ``from_flax``: a state dict of ``module`` (or any
+    subset of its keys, e.g. an optimizer's moments) -> ``(params,
+    batch_stats)`` flax trees of numpy leaves in the JAX layout
+    (``batch_stats`` holds the module's buffers, empty for a model without
+    batch norm).  ``save_npz`` writes either with ``/``-joined keys."""
+    names = {n for n, _ in module.named_parameters()}
+    trees: Tuple[Dict[str, Any], Dict[str, Any]] = ({}, {})
+    for key, t in state_dict.items():
+        arr = t.detach().cpu().numpy()
+        path, perm = flax_layout(module, key, arr.ndim)
+        if perm is not None:
+            arr = arr.transpose(np.argsort(perm))
+        node = trees[key not in names]
+        *parents, leaf = path.split('/')
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = arr
+    return trees
 
 
 def load_flax(module: nn.Module, tree: Dict[str, Any],
