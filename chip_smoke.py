@@ -137,6 +137,25 @@ exit:
    of the unconverted run (the first step's losses within
    ``RESUME_TOL``), then served through ``--acoustic_dir`` (one
    ``decode_full`` launch).
+13. The training-quality study tools (``transtacos_retunegan_tpu_torch/tools``)
+   on the card, their trainers as subprocesses there: ``convergence_session``
+   at the default ``Config()`` with short legs (``STUDY_CONVERGENCE``): every
+   held-out loss, alignment metric and vocoder-against-Griffin-Lim metric
+   finite, the report and CSVs written,
+   one launch per held-out text and one for its ``tts``; ``decay_session``
+   on the same corpus (``STUDY_DECAY``): two segments, the second resuming
+   from the first, the hoisted step before ``tf_start_decay`` and the
+   scanned one after (``hoist_force_eligible`` at each step), the table's
+   ratios equal to both schedules', one launch per text at each
+   evaluation; on the convergence session's runs ``coverage_diagnosis``
+   (one launch per text), ``draw_embd_sim`` (symmetric similarities with a
+   unit diagonal), ``bf16_ab`` (both dtypes finite, the deviation
+   printed), ``variant_ranking`` over the GAN leg and
+   ``dsp_studies.run_all``; last, ``sanity_train`` at its defaults (300
+   acoustic and 150 GAN steps asked at its reduced widths; its four checks
+   and their margins; its synthesis one ``decode_full`` launch); each
+   tool's time, and within the sessions the time of each corpus build,
+   trainer run and evaluation.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
@@ -151,6 +170,7 @@ import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -2929,6 +2949,289 @@ def run_dirs(fd, runs: dict, base: str, device):
     return {k: a[k] + b[k] for k in a}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the training-quality study tools on the card
+# ---------------------------------------------------------------------------
+# convergence_session at the default Config with short legs on a corpus of
+# STUDY_UTTS utterances (5% held out: STUDY_TEXTS texts evaluated); then
+# decay_session on the same corpus at B=16 with the decay compressed to
+# steps 20-40 in two segments, each evaluated at its end (the trainer logs
+# every 20 steps, so each segment logs its own last step).  sanity_train
+# runs at its defaults.
+STUDY_UTTS, STUDY_TEXTS = 100, 4
+STUDY_CONVERGENCE = ('--acoustic_steps', '20', '--gan_steps', '10', '--n_utts',
+                     str(STUDY_UTTS), '--max_texts', str(STUDY_TEXTS))
+STUDY_EVALS = (20, 40)
+STUDY_DECAY = ('--batch_size', '16', '--tf_start_decay', '20', '--tf_decay', '20',
+               '--eval_steps', ','.join(map(str, STUDY_EVALS)), '--checkpoint_interval', '20',
+               '--max_texts', str(STUDY_TEXTS), '--n_utts', str(STUDY_UTTS))
+SIM_TOL = 1e-5             # embedding similarities: symmetric, unit diagonal
+
+
+@contextlib.contextmanager
+def counted(fd, module, name: str, calls: list):
+    """``module.name`` replaced, while the block runs, by a wrapper that sets
+    the launch counters to 0 just before each call and appends them, read
+    just after it, to ``calls``."""
+    real = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        for k in fd.LAUNCHES:
+            fd.LAUNCHES[k] = 0
+        out = real(*args, **kwargs)
+        calls.append(dict(fd.LAUNCHES))
+        return out
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+@contextlib.contextmanager
+def timed(spent: list, *targets):
+    """Each ``(module, name)`` of ``targets`` replaced, while the block runs,
+    by a wrapper that appends ``(name, seconds)`` of each call to ``spent``
+    (a trainer's run under ``run_cli`` with the trainer's name)."""
+    saved = []
+    for module, name in targets:
+        real = getattr(module, name)
+
+        def wrapper(*args, _real=real, _name=name, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return _real(*args, **kwargs)
+            finally:
+                what = (f'{_name} {args[0].rsplit(".", 1)[-1]}' if _name == 'run_cli'
+                        else _name)
+                spent.append((what, round(time.perf_counter() - t0, 1)))
+        saved.append((module, name, real))
+        setattr(module, name, wrapper)
+    try:
+        yield spent
+    finally:
+        for module, name, real in saved:
+            setattr(module, name, real)
+
+
+def all_finite(tree) -> bool:
+    """Every number in a nested dict/list of a tool's results is finite."""
+    if isinstance(tree, dict):
+        return all(all_finite(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return all(all_finite(v) for v in tree)
+    if isinstance(tree, (bool, str)) or tree is None:
+        return True
+    return bool(np.isfinite(tree))
+
+
+def sanity_on_card(fd, device, base: str):
+    """(4) ``sanity_train`` at its defaults; its four checks raise when they
+    fail.  Returns the launches of its synthesis."""
+    from transtacos_retunegan_tpu_torch.tools import sanity_train as st
+    calls, spent = [], []
+    with counted(fd, st, 'synthesis_check', calls), timed(
+            spent, (st, 'build_corpus'), (st, 'gan_leg'), (st, 'acoustic_leg'),
+            (st, 'synthesis_check')):
+        res = st.main(['--device', device.type, '--workdir', f'{base}/sanity'])
+    lo, hi = st.PEAK_HZ
+    margins = {'loss drop': (res['loss_drop'], st.LOSS_DROP),
+               'mstft drop': (res['mstft_drop'], st.MSTFT_DROP),
+               'separation': (res['separation'], st.SEPARATION)}
+    log('  (4) sanity_train (300 acoustic / 150 GAN steps asked, tiny widths): ' + '; '.join(
+        f'{k} {v:.4f} > {t} (margin {v - t:+.4f})' for k, (v, t) in margins.items())
+        + f'; dominant frequency {res["peak_hz"]:.1f} Hz in ({lo:.0f}, {hi:.0f}) (margin '
+        f'{min(res["peak_hz"] - lo, hi - res["peak_hz"]):.1f} Hz); loss {res["loss_first"]:.4f}'
+        f' -> {res["loss_last"]:.4f}, mstft {res["mstft_early"]:.4f} -> '
+        f'{res["mstft_late"]:.4f} over {res["gan_steps_run"]} GAN steps; its synthesis '
+        f'launches {calls}; s: {spent}')
+    if calls != [{'decode_step': 0, 'decode_full': 1}]:
+        raise AssertionError(f'sanity_train\'s synthesis launched {calls}, not one decode_full')
+    return calls[0]
+
+
+def convergence_on_card(fd, device, base: str):
+    """(1) ``convergence_session`` at the default ``Config()`` with short
+    legs; returns its run dirs and data and the launches of
+    ``eval_synthesis``."""
+    from transtacos_retunegan_tpu_torch.tools import convergence_session as cs
+    out_dir = f'{base}/legs/gan_RefineGAN_small'
+    calls, spent = [], []
+    with counted(fd, cs, 'eval_synthesis', calls), timed(
+            spent, (cs, 'build_corpus'), (cs, 'run_cli'), (cs, 'eval_teacher_forced'),
+            (cs, 'eval_synthesis'), (cs, 'eval_vocoder_vs_gl')):
+        ev = cs.main([*STUDY_CONVERGENCE, '--workdir', f'{base}/conv', '--out_dir', out_dir,
+                      '--device', device.type])
+    data = f'{base}/conv/processed'
+    n_texts = min(STUDY_TEXTS, len(cs.held_out_texts(data)))
+    files = ('README.md', 'acoustic_loss.csv', 'gan_loss.csv', 'quality_eval.json')
+    written = all(os.path.getsize(os.path.join(out_dir, f)) > 0 for f in files)
+    tf, sy, vg = ev['teacher_forced'], ev['synthesis'], ev['vocoder_vs_gl']
+    log(f'  (1) convergence_session {" ".join(STUDY_CONVERGENCE)}: held out '
+        f'{tf["n_test_items"]} items, teacher-forced mel L1 {tf["held_out_mel_l1"]:.4f} '
+        f'(per item {tf["held_out_mel_l1_item"]:.4f}), stop CE {tf["held_out_stop_ce"]:.4f}; '
+        f'{len(sy["per_utt"])} texts synthesized: diagonality {sy["mean_diagonality"]:.4f}, '
+        f'focus {sy["mean_focus"]:.4f}, coverage {sy["mean_coverage"]:.4f}, mass coverage '
+        f'{sy["mean_mass_coverage"]:.4f}, frames {[r["n_frames"] for r in sy["per_utt"]]}; '
+        f'vocoder vs its Griffin-Lim template ({vg["n_items"]} items): GAN {vg["gan"]}, GL '
+        f'{vg["gl"]}, GAN beats GL {vg["gan_beats_gl"]}; report and CSVs written: {written}; '
+        f'eval_synthesis launches {calls}; s: {spent}')
+    want = [{'decode_step': 0, 'decode_full': n_texts + 1}]
+    if not (all_finite(ev) and written and len(sy['per_utt']) == n_texts and calls == want):
+        raise AssertionError(f'convergence_session: not every number finite, a file missing '
+                             f'or launches {calls} (expected {want})')
+    return {'ac_run': f'{base}/conv/ac_run', 'vo_run': f'{base}/conv/vo_run', 'data': data,
+            'cfg': f'{base}/conv/cfg', 'legs': f'{base}/legs'}, calls[0]
+
+
+def decay_on_card(fd, device, base: str, data: str):
+    """(2) ``decay_session`` on (1)'s corpus: the segments resume from
+    each other, the hoisted step runs before ``tf_start_decay`` and the
+    scanned one after, the table's ratios are both schedules'; returns the
+    launches of its three evaluations."""
+    from transtacos_retunegan_tpu_torch.config import Config
+    from transtacos_retunegan_tpu_torch.tools import decay_session as ds
+    from transtacos_retunegan_tpu_torch.tools.convergence_session import held_out_texts
+    from transtacos_retunegan_tpu_torch.train.acoustic_step import hoist_force_eligible
+    from transtacos_retunegan_tpu_torch.train.schedules import teacher_forcing_ratio
+    work, out_dir = f'{base}/decay', f'{base}/decay_out'
+    os.makedirs(work)
+    os.symlink(data, f'{work}/processed')
+    calls, spent = [], []
+    with counted(fd, ds, 'eval_synthesis_alignment', calls), timed(
+            spent, (ds, 'run_cli'), (ds, 'eval_teacher_forced'),
+            (ds, 'eval_synthesis_alignment')):
+        table = ds.main([*STUDY_DECAY, '--workdir', work, '--out_dir', out_dir,
+                         '--device', device.type])
+    cfg = Config.load(f'{work}/cfg')
+    hp = cfg.acoustic
+    with open(f'{out_dir}/acoustic_loss.csv') as f:
+        rows = [line.split(',') for line in f.read().split()[1:]]
+    steps = [int(r[0]) for r in rows]
+    with open(f'{work}/ac_run/train.log') as f:
+        resumed = [int(x) for x in re.findall(r'resumed from step (\d+)', f.read())]
+    kinds, prev = [], 0
+    for target in STUDY_EVALS:
+        kinds.append(sorted({'hoisted' if hoist_force_eligible(cfg, k) else 'scanned'
+                             for k in range(prev, target)}))
+        prev = target
+    ratios = [(r['step'], r['tf_ratio'], ds.tf_ratio_at(r['step'], hp),
+               teacher_forcing_ratio(r['step'], hp)) for r in table['rows']]
+    ratios_ok = all(abs(a - b) <= 1e-6 and abs(a - c) <= 1e-6 for _, a, b, c in ratios)
+    n_texts = min(STUDY_TEXTS, len(held_out_texts(data)))
+    log(f'  (2) decay_session {" ".join(STUDY_DECAY)}: logged steps {steps} at '
+        f'{[float(r[1]) for r in rows]} s/step, tfr {[float(r[5]) for r in rows]}, loss '
+        f'{[float(r[2]) for r in rows]}; segments resumed from steps {resumed}; the steps '
+        f'of each segment ran {kinds} (hoist_force_eligible, tf_start_decay '
+        f'{hp.tf_start_decay}); table ratios (step, row, tf_ratio_at, teacher_forcing_ratio) '
+        f'{ratios}; coverage {[r["coverage"] for r in table["rows"]]}, diagonality '
+        f'{[r["diagonality"] for r in table["rows"]]}, mel L1 (item) '
+        f'{[r["held_out_mel_l1_item"] for r in table["rows"]]}; evaluation launches {calls}; '
+        f's: {spent}')
+    want = [{'decode_step': 0, 'decode_full': n_texts}] * len(STUDY_EVALS)
+    if not (steps == list(STUDY_EVALS) and len(table['rows']) == len(STUDY_EVALS)
+            and resumed == list(STUDY_EVALS[:-1])
+            and kinds == [['hoisted']] + [['scanned']] * (len(STUDY_EVALS) - 1)
+            and ratios_ok and all_finite(table['rows']) and calls == want):
+        raise AssertionError('decay_session did not resume, switch steps, or evaluate as '
+                             f'expected (launches {calls}, expected {want})')
+    return {k: sum(c[k] for c in calls) for k in fd.LAUNCHES}
+
+
+def tools_on_runs(fd, device, base: str, runs: dict):
+    """(3) The other tools on (1)'s runs; returns the launches of
+    ``coverage_diagnosis``."""
+    from transtacos_retunegan_tpu_torch.config import AudioConfig
+    from transtacos_retunegan_tpu_torch.tools import (bf16_ab, coverage_diagnosis,
+                                                      draw_embd_sim, dsp_studies,
+                                                      variant_ranking)
+    times = {}
+    t0 = time.perf_counter()
+    for k in fd.LAUNCHES:
+        fd.LAUNCHES[k] = 0
+    cov = coverage_diagnosis.main(['--data_dir', runs['data'], '--acoustic_dir', runs['ac_run'],
+                                   '--config', runs['cfg'], '--out', f'{base}/coverage.json',
+                                   '--max_texts', str(STUDY_TEXTS), '--device', device.type])
+    launches = dict(fd.LAUNCHES)
+    times['coverage_diagnosis'] = time.perf_counter() - t0
+    log(f'  (3) coverage_diagnosis: mean coverage {cov["mean_coverage"]}, winnable '
+        f'{cov["mean_coverage_winnable"]}, structural {cov["total_structural"]}, genuine skips '
+        f'{cov["total_genuine_skip"]}; launches {launches}')
+    if launches != {'decode_step': 0, 'decode_full': len(cov['per_utt'])} or not cov['per_utt']:
+        raise AssertionError(f'coverage_diagnosis launched {launches}')
+
+    t0 = time.perf_counter()
+    sims = draw_embd_sim.main(['--run_dir', runs['ac_run'], '--out_dir', f'{base}/embd',
+                               '--device', device.type])
+    times['draw_embd_sim'] = time.perf_counter() - t0
+    errs = {k: (float(np.abs(s - s.T).max()), float(np.abs(np.diag(s) - 1).max()))
+            for k, s in sims.items()}
+    log(f'  (3) draw_embd_sim: {({k: s.shape for k, s in sims.items()})}, largest asymmetry '
+        f'and diagonal error {errs} (tol {SIM_TOL:.0e})')
+    if not sims or any(max(e) > SIM_TOL for e in errs.values()):
+        raise AssertionError('draw_embd_sim: a similarity matrix is not symmetric with a '
+                             'unit diagonal')
+
+    t0 = time.perf_counter()
+    ab = bf16_ab.main(['--data_dir', runs['data'], '--vocoder_dir', runs['vo_run'], '--config',
+                       runs['cfg'], '--out', f'{base}/bf16_ab.json', '--max_items',
+                       str(STUDY_TEXTS), '--device', device.type])
+    times['bf16_ab'] = time.perf_counter() - t0
+    log(f'  (3) bf16_ab ({ab["n_items"]} items, {ab["device"]}): float32 '
+        f'{ab["per_dtype"]["float32"]}, bfloat16 {ab["per_dtype"]["bfloat16"]}; largest '
+        f'waveform deviation {ab["max_abs_waveform_deviation"]} (printed, not held)')
+    if not all_finite(ab['per_dtype']):
+        raise AssertionError('bf16_ab: a metric is not finite')
+
+    t0 = time.perf_counter()
+    rows = variant_ranking.main(['--base', runs['legs'], '--legs', 'RefineGAN_small',
+                                 '--out', f'{base}/RANKING.md', '--device', device.type])
+    times['variant_ranking'] = time.perf_counter() - t0
+    leg = [r for r in rows if r['variant'] == 'RefineGAN_small']
+    log(f'  (3) variant_ranking over (1)\'s GAN leg: {rows}')
+    if not (leg and 'heldout_mstft' in leg[0]):
+        raise AssertionError('variant_ranking did not read (1)\'s GAN leg')
+
+    t0 = time.perf_counter()
+    au = AudioConfig()
+    studies = dsp_studies.run_all(au, dsp_studies._test_signal(au))
+    times['dsp_studies'] = time.perf_counter() - t0
+    log(f'  (3) dsp_studies.run_all (host numpy): {json.dumps(studies)}')
+    if not all_finite(studies):
+        raise AssertionError('dsp_studies: a number is not finite')
+    return launches, times
+
+
+def study_tools(fd, device, base: str):
+    """Phase 13; returns the ``decode_full`` launches of every evaluated
+    text (the trainers launch no kernel).  ``sanity_train`` runs last, so
+    the other tools' evidence is printed before its verdict."""
+    t0 = time.perf_counter()
+    times = {}
+    total = dict.fromkeys(fd.LAUNCHES, 0)
+
+    def add(launches):
+        for k in total:
+            total[k] += launches.get(k, 0)
+    runs, launches = convergence_on_card(fd, device, base)
+    add(launches)
+    times['convergence_session'] = time.perf_counter() - t0
+    t = time.perf_counter()
+    add(decay_on_card(fd, device, base, runs['data']))
+    times['decay_session'] = time.perf_counter() - t
+    launches, tool_times = tools_on_runs(fd, device, base, runs)
+    add(launches)
+    times.update(tool_times)
+    t = time.perf_counter()
+    try:
+        add(sanity_on_card(fd, device, base))
+    finally:
+        times['sanity_train'] = time.perf_counter() - t
+        log(f'  phase 13 tools\' s: {({k: round(v, 1) for k, v in times.items()})}')
+    log(f'  phase 13 launches {total}')
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -3033,6 +3336,15 @@ def phases(work: str) -> int:
     launches = {k: launches[k] + served.get(k, 0) for k in launches}
     log(f'  phase 12 took {time.perf_counter() - t0:.1f} s [{card}]; its two requests '
         f'{served}; LAUNCHES over the paths of phases 4, 5, 8-12: {launches}')
+
+    log('== phase 13: the training-quality study tools on the card (sanity_train, '
+        'convergence_session, decay_session, coverage_diagnosis, draw_embd_sim, bf16_ab, '
+        'variant_ranking, dsp_studies)')
+    t0 = time.perf_counter()
+    served = study_tools(fd, device, f'{work}/study')
+    launches = {k: launches[k] + served.get(k, 0) for k in launches}
+    log(f'  phase 13 took {time.perf_counter() - t0:.1f} s [{card}]; its evaluated texts '
+        f'{served}; LAUNCHES over the paths of phases 4, 5, 8-13: {launches}')
 
     sources = {'decode_step': 'fused_decoder.cu', 'decode_full': 'fused_decoder.cu',
                'lsa_step': 'lsa_step.cu'}

@@ -673,3 +673,40 @@ def test_device_data_on_the_card(cuda, tmp_path):
                          '--checkpoint_interval', '2', '--summary_interval', '100'])
     log = (tmp_path / 'run' / 'train.log').read_text()
     assert 'device-resident corpus' in log and 'training complete at step 2' in log
+
+
+def test_coverage_diagnosis_on_the_card(cuda, tmp_path, monkeypatch):
+    """``tools/coverage_diagnosis`` on a seeded small-width run, on the card
+    against the CPU, the decoder's weights in float32 on both: the same
+    missed tokens and kinds, coverage within 1e-3 (``chip_smoke.py``'s
+    ``SLICE_TOL`` for this configuration), one ``decode_full`` launch per
+    text on the card and none on the CPU."""
+    import functools
+    from transtacos_retunegan_tpu_torch.serve import pipeline
+    from transtacos_retunegan_tpu_torch.tools import coverage_diagnosis
+    from transtacos_retunegan_tpu_torch.train import checkpoint as ckpt
+    from transtacos_retunegan_tpu_torch.train.acoustic_step import init_state
+    cfg = _small_cfg()
+    run = str(tmp_path / 'run')
+    state = init_state(cfg, 13, 'cpu')
+    with torch.no_grad():
+        state.model.decoder_cell.stop_projection.bias.fill_(-20.0)
+    ckpt.save_acoustic(run, state)
+    cfg.save(run)
+    texts = ['ni3 hao3 shi4 jie4', 'da4 jia1 hao3', 'wo3 men5 yi4 qi3 qu4 gong1 yuan2']
+    (tmp_path / 'test.txt').write_text(''.join(
+        f'u{i}|{"0" * (len(t.split()) - 1)}4|{t}\n' for i, t in enumerate(texts)))
+    monkeypatch.setattr(pipeline, 'fold_params',
+                        functools.partial(fd.fold_params, dtype=torch.float32))
+    res = {}
+    for device in (cuda.type, 'cpu'):
+        before = fd.LAUNCHES['decode_full']
+        res[device] = coverage_diagnosis.main([
+            '--data_dir', str(tmp_path), '--acoustic_dir', run, '--config', run,
+            '--out', str(tmp_path / f'{device}.json'), '--device', device])
+        assert fd.LAUNCHES['decode_full'] - before == (len(texts) if device == cuda.type else 0)
+    for g, w in zip(res[cuda.type]['per_utt'], res['cpu']['per_utt']):
+        assert [(m['pos'], m['kind']) for m in g['missed']] == \
+            [(m['pos'], m['kind']) for m in w['missed']]
+        assert abs(g['coverage'] - w['coverage']) <= 1e-3
+        assert abs(g['coverage_winnable'] - w['coverage_winnable']) <= 1e-3

@@ -47,7 +47,8 @@ from ..models.generators import make_generator
 from ..models.precision import compute_dtype, float32
 from ..parallel import Shard, all_reduce_grads, mean_over_ranks, shard_draw
 from ..serve.pipeline import resolve_device
-from ..weights import seeded_init
+from .. import jax_random
+from ..weights import flax_vocoder_init
 from .optim import clip_by_global_norm_, global_norm, zero_grad_
 
 Batch = Dict[str, torch.Tensor]
@@ -81,13 +82,19 @@ def make_optimizers(cfg: Config, generator: nn.Module, discriminators: nn.Module
 
 def init_gan_state(cfg: Config, seed: int = 114514, device='cuda',
                    shard: Optional[Shard] = None) -> GANState:
-    """Seeded weights (``weights.seeded_init``) and fresh optimizers on
-    ``device``, stepping under ``shard``; load other weights with
-    ``weights.load_flax`` on ``state.generator`` /
+    """The JAX package's initial weights for ``seed`` and fresh optimizers
+    on ``device``, stepping under ``shard``: the generator from
+    ``PRNGKey(seed)``, the discriminators from ``split(fold_in(PRNGKey(seed),
+    11), 3)`` in the order MSD, MPD, MTD, as its ``init_gan_state`` draws
+    them (``weights.flax_vocoder_init``, drawn on ``device``).  Load other
+    weights with ``weights.load_flax`` on ``state.generator`` /
     ``state.discriminators``."""
     dev = resolve_device(device)
-    gen = seeded_init(make_generator(cfg), seed).to(dev)
-    disc = seeded_init(Discriminators(cfg), seed + 1).to(dev)
+    key = jax_random.prng_key(seed)
+    gen = flax_vocoder_init(make_generator(cfg).to(dev), key)
+    disc = Discriminators(cfg).to(dev)
+    for family, k in zip(('msd', 'mpd', 'mtd'), jax_random.split(jax_random.fold_in(key, 11), 3)):
+        flax_vocoder_init(getattr(disc, family), k)
     gopt, dopt = make_optimizers(cfg, gen, disc)
     return GANState(0, gen, gopt, disc, dopt, shard)
 

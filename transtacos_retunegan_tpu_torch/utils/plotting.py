@@ -1,7 +1,7 @@
 """Alignment and spectrogram figures, ported from
 ``transtacos_retunegan_tpu/utils/plotting.py``; matplotlib is imported when
 a figure is drawn, so the port runs where it is missing (the caller then
-gets the ``ImportError``)."""
+gets the ``ImportError``, or ``save_figure`` skips the figure)."""
 
 from __future__ import annotations
 
@@ -57,3 +57,16 @@ def spectrogram_figure(spec: np.ndarray):
     fig.colorbar(im, ax=ax)
     fig.tight_layout()
     return fig
+
+
+def save_figure(draw, *args, **kwargs) -> bool:
+    """``draw(*args, **kwargs)`` (one of the functions above, or a tool's
+    own); where matplotlib is missing, print that the figure was skipped
+    and return False (the caller's numbers are written all the same)."""
+    try:
+        draw(*args, **kwargs)
+    except ImportError:
+        print(f'# figure skipped ({getattr(draw, "__name__", draw)}): matplotlib is '
+              'not installed', flush=True)
+        return False
+    return True

@@ -21,6 +21,9 @@ A tree of several models maps onto a module with one child per top-level
 key, e.g. ``models.discriminators.Discriminators`` for the
 ``{'msd', 'mpd', 'mtd'}`` discriminator tree.
 
+``flax_vocoder_init`` draws, without JAX, the initial vocoder weights
+the JAX package draws from a flax key (``jax_random``).
+
 ``from_flax`` raises unless every leaf lands on a parameter of the module
 and every parameter receives a leaf of its shape; ``to_flax`` maps a state
 dict back to the flax layout (``from_flax(to_flax(sd)) == sd``).  Trees
@@ -36,6 +39,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from . import jax_random
 from .models.vocoder_layers import WNConvTranspose
 
 
@@ -205,4 +209,37 @@ def seeded_init(module: nn.Module, seed: int) -> nn.Module:
         else:
             raise ValueError(f'no initialiser for {name}')
         p.copy_(val)
+    return module
+
+
+# the JAX package's vocoder constants: weight-norm gain, biases, the
+# shared noise scale, the generators' alpha
+_VOCODER_CONSTANTS = {'g': (2.0 / (1.0 + 0.15 ** 2)) ** 0.5, 'b': 0.0, 'w': 1e-6,
+                      'alpha': 4.0}
+
+
+@torch.no_grad()
+def flax_vocoder_init(module: nn.Module, key: jax_random.Key) -> nn.Module:
+    """The weights the JAX package's ``init`` draws for a vocoder module (a
+    generator, or one discriminator family) from the flax key ``key``, on
+    the module's device: each weight-norm direction ``v`` kaiming-normal
+    (leaky slope 0.15, fan-in every flax axis but the last) from
+    ``jax_random.flax_key(key, (*scope, 1))`` (``v`` is the first
+    parameter a weight-norm module creates), and the constants ``g``,
+    ``b``, ``noise/w`` and ``alpha``."""
+    for name, p in module.named_parameters():
+        path, perm = flax_layout(module, name, p.ndim)
+        *scope, leaf = path.split('/')
+        if leaf in _VOCODER_CONSTANTS:
+            p.fill_(_VOCODER_CONSTANTS[leaf])
+        elif leaf == 'v':
+            shape = [0] * p.ndim
+            for i, axis in enumerate(perm):
+                shape[axis] = p.shape[i]
+            std = torch.sqrt(torch.tensor(2.0 / (1.0 + 0.15 ** 2) / np.prod(shape[:-1]),
+                                          dtype=torch.float32))
+            v = jax_random.normal(jax_random.flax_key(key, (*scope, 1)), shape, p.device)
+            p.copy_((v * std.to(p.device)).permute(perm))
+        else:
+            raise ValueError(f'no flax initialiser for {name}')
     return module
