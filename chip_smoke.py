@@ -33,7 +33,9 @@ exit:
    empty kernel of the same grid, cluster and shared memory), with its
    cluster size C and tile P.
 4. The main path one request at a time: ``Synthesizer(devices=['cuda'])`` at
-   the default ``Config()`` with seeded weights.  Each request gets a stop
+   the default ``Config()`` with the JAX server's initial weights (no
+   checkpoint: the acoustic model from ``PRNGKey(0)``, the generator from
+   ``PRNGKey(1)``).  Each request gets a stop
    head under which it stops after the steps its syllables take at the
    training corpus's speaking rate, and its decode on the card is held to
    the plain version on its own encoder memory.  Then, with the launch
@@ -151,11 +153,23 @@ exit:
    (one launch per text), ``draw_embd_sim`` (symmetric similarities with a
    unit diagonal), ``bf16_ab`` (both dtypes finite, the deviation
    printed), ``variant_ranking`` over the GAN leg and
-   ``dsp_studies.run_all``; last, ``sanity_train`` at its defaults (300
+   ``dsp_studies.run_all``; ``sanity_train`` at its defaults (300
    acoustic and 150 GAN steps asked at its reduced widths; its four checks
-   and their margins; its synthesis one ``decode_full`` launch); each
+   and their margins; its synthesis one ``decode_full`` launch).
+   ``sanity_train`` and, once the convergence corpus is built,
+   ``decay_session`` run on threads beside ``convergence_session`` (the
+   trainers are processes; each evaluation that launches a kernel holds
+   ``EVALUATING`` while its launches are counted); each
    tool's time, and within the sessions the time of each corpus build,
    trainer run and evaluation.
+14. The timing and equivalence tools (``transtacos_retunegan_tpu_torch/tools``)
+   on the card at the default ``Config()``, in this process, repetitions cut
+   (``TOOL_RUNS``): ``pallas_equivalence`` (the four decode paths against
+   the stepped cell, 40 steps; its non-zero exit fails the run),
+   ``acoustic_step_ab``, ``profile_stages``, ``acoustic_step_trace``,
+   ``train_scaling --batches 16,32 --stages`` and ``bench_precision``; each
+   tool's JSON and time, and the phase's ``decode_step``/``decode_full``
+   launches held to ``TOOL_LAUNCHES``.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
@@ -260,9 +274,11 @@ STEP_TOL, GEN_TOL = 1e-3, 1e-4
 # TF32 off: losses within ACOUSTIC_LOSS_TOL relative, gradients within
 # ACOUSTIC_GRAD_TOL of each leaf's norm; mel+mag L1 on a fixed batch below
 # DESCENT_FALL of its start after DESCENT_STEPS steps with the Noam
-# warm-up shortened to DESCENT_WARMUP steps.
+# warm-up shortened to DESCENT_WARMUP steps.  The four step timings take
+# STEP_TIMED steps after STEP_WARM, few enough that the whole script stays
+# inside its time limit (phase 14 times the same steps again).
 ACOUSTIC_UTTS, SYLLABLES = 160, (8, 16)
-STEP_WARM, STEP_TIMED, PROFILED = 3, 12, 1
+STEP_WARM, STEP_TIMED, PROFILED = 1, 6, 1
 ACOUSTIC_LOSS_TOL, ACOUSTIC_GRAD_TOL = 1e-4, 1e-3
 DESCENT_STEPS, DESCENT_WARMUP, DESCENT_FALL = 40, 40, 0.9
 
@@ -2968,18 +2984,26 @@ STUDY_DECAY = ('--batch_size', '16', '--tf_start_decay', '20', '--tf_decay', '20
 SIM_TOL = 1e-5             # embedding similarities: symmetric, unit diagonal
 
 
+# Phase 13's tools run on threads side by side (their trainers are
+# processes); each evaluation that launches a kernel holds EVALUATING from
+# setting the launch counters to 0 to reading them, so that one tool's
+# launches are never counted in another's.
+EVALUATING = threading.Lock()
+
+
 @contextlib.contextmanager
 def counted(fd, module, name: str, calls: list):
     """``module.name`` replaced, while the block runs, by a wrapper that sets
     the launch counters to 0 just before each call and appends them, read
-    just after it, to ``calls``."""
+    just after it, to ``calls`` (holding EVALUATING)."""
     real = getattr(module, name)
 
     def wrapper(*args, **kwargs):
-        for k in fd.LAUNCHES:
-            fd.LAUNCHES[k] = 0
-        out = real(*args, **kwargs)
-        calls.append(dict(fd.LAUNCHES))
+        with EVALUATING:
+            for k in fd.LAUNCHES:
+                fd.LAUNCHES[k] = 0
+            out = real(*args, **kwargs)
+            calls.append(dict(fd.LAUNCHES))
         return out
     setattr(module, name, wrapper)
     try:
@@ -3050,18 +3074,31 @@ def sanity_on_card(fd, device, base: str):
     return calls[0]
 
 
-def convergence_on_card(fd, device, base: str):
+def convergence_on_card(fd, device, base: str, corpus_ready: threading.Event):
     """(1) ``convergence_session`` at the default ``Config()`` with short
-    legs; returns its run dirs and data and the launches of
+    legs, setting ``corpus_ready`` once its corpus is built (or it failed
+    before); returns its run dirs and data and the launches of
     ``eval_synthesis``."""
     from transtacos_retunegan_tpu_torch.tools import convergence_session as cs
     out_dir = f'{base}/legs/gan_RefineGAN_small'
     calls, spent = [], []
-    with counted(fd, cs, 'eval_synthesis', calls), timed(
-            spent, (cs, 'build_corpus'), (cs, 'run_cli'), (cs, 'eval_teacher_forced'),
-            (cs, 'eval_synthesis'), (cs, 'eval_vocoder_vs_gl')):
-        ev = cs.main([*STUDY_CONVERGENCE, '--workdir', f'{base}/conv', '--out_dir', out_dir,
-                      '--device', device.type])
+    build = cs.build_corpus
+
+    def build_corpus(*args, **kwargs):
+        try:
+            return build(*args, **kwargs)
+        finally:
+            corpus_ready.set()
+    cs.build_corpus = build_corpus
+    try:
+        with counted(fd, cs, 'eval_synthesis', calls), timed(
+                spent, (cs, 'build_corpus'), (cs, 'run_cli'), (cs, 'eval_teacher_forced'),
+                (cs, 'eval_synthesis'), (cs, 'eval_vocoder_vs_gl')):
+            ev = cs.main([*STUDY_CONVERGENCE, '--workdir', f'{base}/conv', '--out_dir',
+                          out_dir, '--device', device.type])
+    finally:
+        cs.build_corpus = build
+        corpus_ready.set()
     data = f'{base}/conv/processed'
     n_texts = min(STUDY_TEXTS, len(cs.held_out_texts(data)))
     files = ('README.md', 'acoustic_loss.csv', 'gan_loss.csv', 'quality_eval.json')
@@ -3147,12 +3184,14 @@ def tools_on_runs(fd, device, base: str, runs: dict):
                                                       variant_ranking)
     times = {}
     t0 = time.perf_counter()
-    for k in fd.LAUNCHES:
-        fd.LAUNCHES[k] = 0
-    cov = coverage_diagnosis.main(['--data_dir', runs['data'], '--acoustic_dir', runs['ac_run'],
-                                   '--config', runs['cfg'], '--out', f'{base}/coverage.json',
-                                   '--max_texts', str(STUDY_TEXTS), '--device', device.type])
-    launches = dict(fd.LAUNCHES)
+    with EVALUATING:
+        for k in fd.LAUNCHES:
+            fd.LAUNCHES[k] = 0
+        cov = coverage_diagnosis.main(['--data_dir', runs['data'], '--acoustic_dir',
+                                       runs['ac_run'], '--config', runs['cfg'], '--out',
+                                       f'{base}/coverage.json', '--max_texts',
+                                       str(STUDY_TEXTS), '--device', device.type])
+        launches = dict(fd.LAUNCHES)
     times['coverage_diagnosis'] = time.perf_counter() - t0
     log(f'  (3) coverage_diagnosis: mean coverage {cov["mean_coverage"]}, winnable '
         f'{cov["mean_coverage_winnable"]}, structural {cov["total_structural"]}, genuine skips '
@@ -3204,31 +3243,112 @@ def tools_on_runs(fd, device, base: str, runs: dict):
 
 def study_tools(fd, device, base: str):
     """Phase 13; returns the ``decode_full`` launches of every evaluated
-    text (the trainers launch no kernel).  ``sanity_train`` runs last, so
-    the other tools' evidence is printed before its verdict."""
+    text (the trainers launch no kernel).  ``sanity_train`` and, once
+    (1)'s corpus is built, ``decay_session`` run on threads of their own
+    beside ``convergence_session``; the tools on (1)'s runs follow it."""
     t0 = time.perf_counter()
     times = {}
     total = dict.fromkeys(fd.LAUNCHES, 0)
+    corpus_ready = threading.Event()
+    results = {}
 
     def add(launches):
         for k in total:
             total[k] += launches.get(k, 0)
-    runs, launches = convergence_on_card(fd, device, base)
-    add(launches)
-    times['convergence_session'] = time.perf_counter() - t0
-    t = time.perf_counter()
-    add(decay_on_card(fd, device, base, runs['data']))
-    times['decay_session'] = time.perf_counter() - t
-    launches, tool_times = tools_on_runs(fd, device, base, runs)
-    add(launches)
-    times.update(tool_times)
-    t = time.perf_counter()
+
+    def run(name, fn, *args):
+        try:
+            results[name] = fn(*args)
+        except BaseException as e:     # handed to the main thread below
+            results[name] = e
+        finally:
+            times[name] = time.perf_counter() - t0
+
+    def decay():
+        corpus_ready.wait()
+        return decay_on_card(fd, device, base, f'{base}/conv/processed')
+    workers = [threading.Thread(target=run, args=('sanity_train', sanity_on_card, fd, device,
+                                                  base)),
+               threading.Thread(target=run, args=('decay_session', decay))]
+    for w in workers:
+        w.start()
     try:
-        add(sanity_on_card(fd, device, base))
+        runs, launches = convergence_on_card(fd, device, base, corpus_ready)
+        add(launches)
+        times['convergence_session'] = time.perf_counter() - t0
+        launches, tool_times = tools_on_runs(fd, device, base, runs)
+        add(launches)
+        times.update(tool_times)
     finally:
-        times['sanity_train'] = time.perf_counter() - t
-        log(f'  phase 13 tools\' s: {({k: round(v, 1) for k, v in times.items()})}')
+        corpus_ready.set()
+        for w in workers:
+            w.join()
+        log(f'  phase 13 tools\' s (the sessions and sanity_train from the phase\'s start, '
+            f'side by side): {({k: round(v, 1) for k, v in times.items()})}')
+    for name in ('decay_session', 'sanity_train'):
+        if isinstance(results[name], BaseException):
+            raise results[name]
+        add(results[name])
     log(f'  phase 13 launches {total}')
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the timing and equivalence tools on the card
+# ---------------------------------------------------------------------------
+# Each tool at the default Config() (widths and geometries its own), run in
+# this process through its main(), with its repetitions cut (TOOL_RUNS);
+# the launch counters set to 0 just before each tool and read just after.
+# pallas_equivalence decodes 40 steps with decode_step and three times with
+# decode_full; profile_stages's acoustic stage decodes 80 steps with
+# decode_step in each of its 1 + warmup + reps calls; no other tool
+# launches a kernel.
+EQUIVALENCE_STEPS = 40
+PROFILE_STEPS, PROFILE_WARMUP, PROFILE_REPS = 80, 0, 1
+CUT = ['--warm', '0', '--steps', '1', '--trials', '1']
+TOOL_RUNS = (
+    ('pallas_equivalence', ['--steps', str(EQUIVALENCE_STEPS)]),
+    ('acoustic_step_ab', CUT),
+    ('profile_stages', ['--reps', str(PROFILE_REPS), '--warmup', str(PROFILE_WARMUP)]),
+    ('acoustic_step_trace', CUT),
+    ('train_scaling', ['--batches', '16,32', '--stages'] + CUT),
+    ('bench_precision', ['--steps', '1', '--trials', '1']),
+)
+TOOL_LAUNCHES = {'decode_step': EQUIVALENCE_STEPS
+                 + PROFILE_STEPS * (1 + PROFILE_WARMUP + PROFILE_REPS),
+                 'decode_full': 3}
+
+
+def timing_tools(fd, card: str, base: str, device):
+    """Phase 14; returns the launches of its six tools.  pallas_equivalence
+    exits non-zero when a float32 path leaves its tolerance; the launches
+    must be the predicted ones."""
+    import importlib
+    os.makedirs(base, exist_ok=True)
+    total = dict.fromkeys(fd.LAUNCHES, 0)
+    spent = {}
+    for name, argv in TOOL_RUNS:
+        tool = importlib.import_module(f'transtacos_retunegan_tpu_torch.tools.{name}')
+        if tool.parser().get_default('out') is not None:
+            argv = argv + ['--out', f'{base}/{name}.json']
+        for k in fd.LAUNCHES:
+            fd.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        try:
+            result = tool.main(argv + ['--device', str(device)])
+        except SystemExit as e:
+            raise AssertionError(f'{name} exited: {e}') from e
+        spent[name] = round(time.perf_counter() - t0, 1)
+        launches = dict(fd.LAUNCHES)
+        for k in total:
+            total[k] += launches[k]
+        if not all_finite({k: v for k, v in result.items() if k != 'device'}):
+            raise AssertionError(f'{name}: a number is not finite: {result}')
+        log(f'  {name} ({spent[name]} s, launches {launches}): {json.dumps(result)}')
+    log(f'  phase 14 tools\' s: {spent} [{card}]')
+    log(f'  phase 14 launches {total}, predicted {TOOL_LAUNCHES}')
+    if total != TOOL_LAUNCHES:
+        raise AssertionError(f'phase 14 launched {total}, predicted {TOOL_LAUNCHES}')
     return total
 
 
@@ -3345,6 +3465,15 @@ def phases(work: str) -> int:
     launches = {k: launches[k] + served.get(k, 0) for k in launches}
     log(f'  phase 13 took {time.perf_counter() - t0:.1f} s [{card}]; its evaluated texts '
         f'{served}; LAUNCHES over the paths of phases 4, 5, 8-13: {launches}')
+
+    log('== phase 14: the timing and equivalence tools on the card (pallas_equivalence, '
+        'acoustic_step_ab, profile_stages, acoustic_step_trace, train_scaling, '
+        'bench_precision)')
+    t0 = time.perf_counter()
+    served = timing_tools(fd, card, f'{work}/tools', device)
+    launches = {k: launches[k] + served.get(k, 0) for k in launches}
+    log(f'  phase 14 took {time.perf_counter() - t0:.1f} s [{card}]; its tools {served}; '
+        f'LAUNCHES over the paths of phases 4, 5, 8-14: {launches}')
 
     sources = {'decode_step': 'fused_decoder.cu', 'decode_full': 'fused_decoder.cu',
                'lsa_step': 'lsa_step.cu'}

@@ -34,10 +34,11 @@ from transtacos_retunegan_tpu.data import feeder as JD
 from transtacos_retunegan_tpu_torch.config import Config as PortConfig
 from transtacos_retunegan_tpu_torch.data import device_data as DD
 from transtacos_retunegan_tpu_torch.data import feeder as PD
+from transtacos_retunegan_tpu_torch.jax_random import prng_key
 from transtacos_retunegan_tpu_torch.parallel import Shard
 from transtacos_retunegan_tpu_torch.train import acoustic_step as A
 from transtacos_retunegan_tpu_torch.train import train_acoustic as ta
-from transtacos_retunegan_tpu_torch.weights import seeded_init
+from transtacos_retunegan_tpu_torch.weights import flax_acoustic_init
 
 pytestmark = pytest.mark.usefixtures('few_threads')
 SYLLABLES = ['ni3', 'hao3', 'shi4', 'jie4', 'zhong1', 'guo2', 'ren2', 'wo3', 'men5',
@@ -243,7 +244,7 @@ def test_seeded_model_steps_on_gathered_batches(corpus):
     _, _, pcfg, pds = _datasets(corpus)
     dd = DD.DeviceResidentData(pds, pcfg, 'cpu')
     state = A.init_state(pcfg, 0, 'cpu')
-    before = seeded_init(type(state.model)(pcfg), 0).state_dict()
+    before = flax_acoustic_init(type(state.model)(pcfg), prng_key(0)).state_dict()
     for batch in zip(range(2), DD.DevicePump(dd, seed=1)):
         state, out = A.train_step_hoisted(pcfg, state, batch[1], None)
         assert np.isfinite(float(out['loss']))

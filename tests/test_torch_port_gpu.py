@@ -710,3 +710,19 @@ def test_coverage_diagnosis_on_the_card(cuda, tmp_path, monkeypatch):
             [(m['pos'], m['kind']) for m in w['missed']]
         assert abs(g['coverage'] - w['coverage']) <= 1e-3
         assert abs(g['coverage_winnable'] - w['coverage_winnable']) <= 1e-3
+
+
+def test_pallas_equivalence_on_the_card(cuda, tmp_path):
+    """``tools/pallas_equivalence.py`` at its defaults (B=1, N=80, 40
+    steps, the stock cell from ``PRNGKey(0)``): every float32 path within
+    2e-4 of the stepped cell with equal ``out_lengths``, 40 ``decode_step``
+    and 3 ``decode_full`` launches."""
+    from transtacos_retunegan_tpu_torch.tools import pallas_equivalence as pe
+    before = dict(fd.LAUNCHES)
+    result = pe.main(['--out', str(tmp_path / 'pe.json')])
+    assert {k: fd.LAUNCHES[k] - before[k] for k in before} == {'decode_step': 40,
+                                                                'decode_full': 3}
+    assert not result['interpret'] and result['platform'] == 'cuda'
+    for tag in pe.F32_RUNS:
+        assert result['runs'][tag]['out_lengths_equal']
+        assert max(result['runs'][tag][k] for k in pe.OUTPUTS) <= 2e-4

@@ -44,3 +44,10 @@ def test_walk_covers_the_parallel_package():
     names = {str(p.relative_to(ROOT)) for p in FILES}
     for f in ('parallel/__init__.py', 'parallel/mesh.py', 'tools/multihost_smoke.py'):
         assert f'transtacos_retunegan_tpu_torch/{f}' in names, f
+
+
+@pytest.mark.parametrize('tool', ['acoustic_step_ab', 'pallas_equivalence', 'profile_stages',
+                                  'acoustic_step_trace', 'train_scaling', 'bench_precision'])
+def test_walk_covers_the_timing_tools(tool):
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    assert f'transtacos_retunegan_tpu_torch/tools/{tool}.py' in names

@@ -16,6 +16,18 @@ same seed:
   taken in float64 and rounded, so that every device draws the same
   float32 values; XLA's float32 ``log1p`` may round an ulp apart, so a
   value may be an ulp or two from JAX's (within 1e-6 at |x| < 6);
+* ``uniform(key, shape, minval, maxval)`` is ``jax.random.uniform``: the
+  same 23 bits as a float in [1, 2) less 1, scaled to the interval and
+  held at ``minval`` from below; ``normal`` draws it on [nextafter(-1,
+  0), 1);
+* ``truncated_normal(key, lower, upper, shape)`` is
+  ``jax.random.truncated_normal``: ``uniform`` between ``erf(lower/sqrt2)``
+  and ``erf(upper/sqrt2)``, then ``sqrt(2) * erfinv``, clipped inside the
+  bounds;
+* ``orthogonal(key, shape)`` is flax's ``orthogonal()`` initialiser (JAX's
+  ``random.orthogonal``): the QR of a normal matrix with the signs of
+  ``diag(r)`` on the columns of ``q``.  Its float32 QR runs on the CPU
+  and may be an ulp or so from LAPACK's in JAX (within 1e-5);
 * ``flax_key(root, path)`` is the key that flax's ``make_rng('params')``
   gives a parameter: ``root`` folded once with the first four bytes of the
   SHA-1 of the scope's path names followed by the parameter's position in
@@ -23,7 +35,8 @@ same seed:
   separators (flax's ``flax_fix_rng_separator`` off, its default).
 
 Words are held in int64 tensors (values in ``[0, 2**32)``) so that the
-arithmetic is exact on any device; ``normal`` runs on ``device``.
+arithmetic is exact on any device; the draws run on ``device``
+(``orthogonal`` on the CPU).
 """
 
 from __future__ import annotations
@@ -100,23 +113,68 @@ def erfinv32(x: torch.Tensor) -> torch.Tensor:
     return p * x
 
 
-def normal(key: Key, shape: Sequence[int], device: Union[str, torch.device] = 'cpu'
-           ) -> torch.Tensor:
-    """``jax.random.normal(key, shape)`` in float32 on ``device``, drawn
-    in chunks of ``CHUNK`` counters (which keeps the cipher's rounds in
-    the CPU's caches)."""
+def _unit(key: Key, start: int, stop: int, device) -> torch.Tensor:
+    """JAX's uniform float32 draws in [0, 1) for the counters
+    ``start..stop-1``: 23 random bits as the mantissa of a float in [1, 2),
+    less 1."""
+    count = torch.arange(start, stop, dtype=torch.int64, device=device)
+    y0, y1 = threefry2x32(key, torch.zeros_like(count), count)
+    bits = y0.bitwise_xor_(y1).bitwise_right_shift_(9).bitwise_or_(0x3F800000)
+    return bits.to(torch.int32).view(torch.float32) - 1.0
+
+
+def _f32(x, device) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32).to(device)
+
+
+def uniform(key: Key, shape: Sequence[int], minval=0.0, maxval=1.0,
+            device: Union[str, torch.device] = 'cpu', post=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)`` on
+    ``device``, drawn in chunks of ``CHUNK`` counters (which keeps the
+    cipher's rounds in the CPU's caches); ``post``, when given, maps each
+    chunk in place of a second pass."""
     n = math.prod(shape)
     out = torch.empty(n, dtype=torch.float32, device=device)
-    lo = torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)).to(device)
-    sqrt2 = torch.tensor(math.sqrt(2.0), dtype=torch.float32, device=device)
+    lo, hi = _f32(minval, device), _f32(maxval, device)
     for start in range(0, n, CHUNK):
-        count = torch.arange(start, min(n, start + CHUNK), dtype=torch.int64, device=device)
-        y0, y1 = threefry2x32(key, torch.zeros_like(count), count)
-        bits = y0.bitwise_xor_(y1).bitwise_right_shift_(9).bitwise_or_(0x3F800000)
-        unit = bits.to(torch.int32).view(torch.float32) - 1.0        # [0, 1)
-        u = torch.maximum(lo, unit * (1.0 - lo) + lo)
-        out[start:start + CHUNK] = erfinv32(u) * sqrt2
+        u = torch.maximum(lo, _unit(key, start, min(n, start + CHUNK), device)
+                          * (hi - lo) + lo)
+        out[start:start + CHUNK] = u if post is None else post(u)
     return out.reshape(shape)
+
+
+def normal(key: Key, shape: Sequence[int], device: Union[str, torch.device] = 'cpu'
+           ) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` in float32 on ``device``."""
+    lo = torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0))
+    sqrt2 = _f32(math.sqrt(2.0), device)
+    return uniform(key, shape, lo, 1.0, device, post=lambda u: erfinv32(u) * sqrt2)
+
+
+def truncated_normal(key: Key, lower: float, upper: float, shape: Sequence[int],
+                     device: Union[str, torch.device] = 'cpu') -> torch.Tensor:
+    """``jax.random.truncated_normal(key, lower, upper, shape)`` in float32
+    on ``device``; the bounds' ``erf`` is rounded from float64."""
+    sqrt2 = _f32(math.sqrt(2.0), device)
+    lower, upper = _f32(lower, device), _f32(upper, device)
+    a, b = (torch.erf((x / sqrt2).double()).float() for x in (lower, upper))
+    inf = _f32(math.inf, device)
+    lo, hi = torch.nextafter(lower, inf), torch.nextafter(upper, -inf)
+    return uniform(key, shape, a, b, device,
+                   post=lambda u: torch.clamp(sqrt2 * erfinv32(u), lo, hi))
+
+
+def orthogonal(key: Key, shape: Sequence[int]) -> torch.Tensor:
+    """flax's ``initializers.orthogonal()`` (scale 1, columns on the last
+    axis) of ``shape``, in float32 on the CPU."""
+    cols = shape[-1]
+    rows = math.prod(shape) // cols
+    z = normal(key, (max(rows, cols), min(rows, cols)))
+    q, r = torch.linalg.qr(z)
+    q = q * torch.sign(torch.diagonal(r))[None, :]
+    if rows < cols:
+        q = q.T
+    return q.reshape(shape)
 
 
 def flax_key(root: Key, path: Sequence[Union[str, int]]) -> Key:

@@ -6,10 +6,10 @@
 Modes: ``all`` (default: one process, three reference-compatible ports 5103
 webui, 5104 vocoder, 5105 acoustic) or one role on its reference port (or
 ``--port``).  Weights come from the trainers' run dirs (the newest
-``ckpt_`` / ``g_``; a dir without one keeps the seeded weights, as in the
+``ckpt_`` / ``g_``; a dir without one keeps the initial weights, as in the
 JAX package) or from flax parameter trees saved as ``.npz``
 (``--acoustic_npz``/``--vocoder_npz``, ``weights.save_npz``), one source per
-model; without either the weights are drawn from the seed.  ``--config``
+model; without either, the JAX server's initial weights.  ``--config``
 is given explicitly (a run dir is fine), as in the JAX package.
 Micro-batching is on unless ``--batch_window_ms 0``.  Runs on the card
 (``--device cuda``) unless told otherwise; ``--dp N`` serves the batched

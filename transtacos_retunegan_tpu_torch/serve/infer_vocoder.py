@@ -6,7 +6,7 @@ Iterates a folder: ``.npy`` files are normalized magnitude features from
 the acoustic preprocessor (``mag-*.npy``) and are vocoded; ``.wav`` files
 go through an analysis -> resynthesis round trip.  Loads the run's frozen
 ``config.json`` and its newest ``g_*`` checkpoint (none: a warning and
-seeded random weights, as the JAX tool does).  The Griffin-Lim template
+the JAX tool's initial weights, from ``PRNGKey(0)``).  The Griffin-Lim template
 comes from the host's ``audio.transforms.inv_log_mag`` (the native library
 by default, ``--gl_engine numpy`` on request); the generator runs in
 float32 (TF32 off) on ``--device``, which defaults to ``cuda`` and raises
@@ -27,18 +27,21 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from .. import jax_random
 from ..audio import features, transforms as T
 from ..config import Config
 from ..models.generators import make_generator
 from ..train import checkpoint as ckpt
-from ..weights import seeded_init
+from ..weights import flax_vocoder_init
 from .pipeline import resolve_device
 
 
 def load_generator(run_dir: str, cfg: Config, device='cuda') -> nn.Module:
     """The configured generator on ``device`` with the run's newest ``g_*``
-    weights, or seeded random ones (with a warning) when it has none."""
-    gen = seeded_init(make_generator(cfg), 0).to(resolve_device(device)).eval()
+    weights, or (with a warning) the JAX tool's initial ones, drawn from
+    ``PRNGKey(0)``, when it has none."""
+    gen = flax_vocoder_init(make_generator(cfg), jax_random.prng_key(0))
+    gen = gen.to(resolve_device(device)).eval()
     if ckpt.restore_generator_params(run_dir, gen) is None:
         print(f'warning: no g_* checkpoint under {run_dir}; using random init')
     return gen

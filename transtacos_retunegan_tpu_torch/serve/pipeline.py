@@ -48,6 +48,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import jax_random
 from ..audio import dsp, features
 from ..config import Config
 from ..models.acoustic import Tacotron, posnet_apply
@@ -56,7 +57,7 @@ from ..models.precision import compute_dtype
 from ..ops.fused_decoder import fold_params, fused_decode_full
 from ..text import frontend
 from ..train import checkpoint as ckpt
-from ..weights import load_flax, load_npz, seeded_init
+from ..weights import flax_acoustic_init, flax_vocoder_init, load_flax, load_npz
 
 
 def _round_up(x: int, m: int) -> int:
@@ -90,9 +91,13 @@ class Synthesizer:
         leaves), the path of one saved with ``weights.save_npz``, or the
         module's own state dict (torch tensors; an acoustic training
         checkpoint gives one through ``train.checkpoint.load_acoustic_params``);
-        seeded random weights when None.  ``acoustic_dir`` / ``vocoder_dir``:
-        a trainer's run dir, whose newest ``ckpt_`` / ``g_`` is loaded (the
-        seeded weights stay when it has none), as the JAX constructor's;
+        when None, the JAX server's initial weights whatever the ``seed``
+        (which seeds only the requests' draws): the acoustic model's from
+        ``PRNGKey(0)`` (``weights.flax_acoustic_init``), the generator's
+        from ``PRNGKey(1)`` (``weights.flax_vocoder_init``).
+        ``acoustic_dir`` / ``vocoder_dir``: a trainer's run dir, whose
+        newest ``ckpt_`` / ``g_`` is loaded (the initial weights stay when
+        it has none), as the JAX constructor's;
         one model takes a dir or params, not both.  ``devices``: one
         replica per entry (replica 0 on the first)."""
         for what, params, run_dir in (('acoustic', acoustic_params, acoustic_dir),
@@ -117,10 +122,11 @@ class Synthesizer:
 
         self.acoustic = Tacotron(self.cfg)
         self.generator = make_generator(self.cfg)
-        for module, tree, s in ((self.acoustic, acoustic_params, seed),
-                                (self.generator, gen_params, seed + 1)):
+        for module, tree, init, key in (
+                (self.acoustic, acoustic_params, flax_acoustic_init, 0),
+                (self.generator, gen_params, flax_vocoder_init, 1)):
             if tree is None:
-                seeded_init(module, s)
+                init(module, jax_random.prng_key(key))
             elif isinstance(tree, dict) and all(isinstance(v, torch.Tensor)
                                                 for v in tree.values()):
                 module.load_state_dict(tree)

@@ -46,6 +46,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from .. import jax_random
 from ..config import Config
 from ..models.acoustic import Tacotron, compute_losses, posnet_apply
 from ..models.decoder_fast import hoisted_force_decode
@@ -54,7 +55,7 @@ from ..ops.fused_decoder import fold_params, fused_decode_full
 from ..parallel import (Shard, all_reduce_grads, gather_params_tp, mean_over_ranks,
                         reduce_from_model, tp_sharded)
 from ..serve.pipeline import resolve_device
-from ..weights import seeded_init
+from ..weights import flax_acoustic_init
 from .optim import clip_by_global_norm_, global_norm, zero_grad_
 from .schedules import noam_lr, teacher_forcing_ratio
 
@@ -88,10 +89,13 @@ def make_optimizer(cfg: Config, model: Tacotron) -> torch.optim.Optimizer:
 
 def init_state(cfg: Config, seed: int = 114514, device='cuda',
                shard: Optional[Shard] = None) -> TrainState:
-    """Seeded weights (``weights.seeded_init``) and a fresh optimizer on
+    """The JAX package's initial weights for ``seed`` (its ``init_state(cfg,
+    PRNGKey(seed), batch)``, drawn by ``weights.flax_acoustic_init``: the
+    same values on every device and rank) and a fresh optimizer on
     ``device``, stepping under ``shard``; load other weights with
     ``weights.load_flax`` on ``state.model`` before the first step."""
-    model = seeded_init(Tacotron(cfg), seed).to(resolve_device(device))
+    dev = resolve_device(device)
+    model = flax_acoustic_init(Tacotron(cfg), jax_random.prng_key(seed)).to(dev)
     return TrainState(0, model, make_optimizer(cfg, model), shard)
 
 

@@ -113,7 +113,7 @@ def load_acoustic_params(path: str) -> Dict[str, torch.Tensor]:
 
 def restore_acoustic_params(run_dir: str) -> Optional[Dict[str, torch.Tensor]]:
     """Inference: the state dict of the newest ``ckpt_`` in ``run_dir``,
-    None for an empty or missing dir (the server keeps its seeded weights)."""
+    None for an empty or missing dir (the server keeps its initial weights)."""
     path = scan_checkpoint(run_dir, 'ckpt_')
     return None if path is None else load_acoustic_params(path)
 

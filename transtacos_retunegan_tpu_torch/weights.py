@@ -21,8 +21,9 @@ A tree of several models maps onto a module with one child per top-level
 key, e.g. ``models.discriminators.Discriminators`` for the
 ``{'msd', 'mpd', 'mtd'}`` discriminator tree.
 
-``flax_vocoder_init`` draws, without JAX, the initial vocoder weights
-the JAX package draws from a flax key (``jax_random``).
+``flax_vocoder_init`` and ``flax_acoustic_init`` draw, without JAX, the
+initial vocoder and acoustic weights the JAX package draws from a flax key
+(``jax_random``).
 
 ``from_flax`` raises unless every leaf lands on a parameter of the module
 and every parameter receives a leaf of its shape; ``to_flax`` maps a state
@@ -167,7 +168,10 @@ def seeded_init(module: nn.Module, seed: int) -> nn.Module:
     weight-norm directions (fan-in: every axis but the output channel) with
     the matching gain ``g``, the generators' ``alpha`` at 4, batch-norm
     scales at 1, the highway gates' bias at -1, and the fused GRU's ``wi``
-    (lecun-normal) and ``wh`` (three orthogonal blocks) in flax's layout."""
+    (lecun-normal) and ``wh`` (three orthogonal blocks) in flax's layout.
+    Torch's random numbers, not JAX's: the trainers and the server start
+    from the JAX package's draws (``flax_acoustic_init``,
+    ``flax_vocoder_init``); ``tools/decode_phases.py`` and tests use this."""
     gen = torch.Generator().manual_seed(seed)
     slope_gain = 2.0 / (1.0 + 0.15 ** 2)
     for name, p in module.named_parameters():
@@ -242,4 +246,101 @@ def flax_vocoder_init(module: nn.Module, key: jax_random.Key) -> nn.Module:
             p.copy_((v * std.to(p.device)).permute(perm))
         else:
             raise ValueError(f'no flax initialiser for {name}')
+    return module
+
+
+# The acoustic model's flax initialisers.  Each parameter's key folds in
+# its position among the parameters its scope creates (flax's counter):
+# a Dense/Conv's kernel before its bias, the attention vector before its
+# bias, the fused GRU's wi, wh, bi, bn, the Tacotron's own embeddings in
+# the order below (those its configuration has).
+_EMBEDDINGS = ('E_text', 'E_tone', 'E_prds', 'E_f0', 'E_c0')
+_POSITION = {'kernel': 1, 'attention_variable': 1, 'wi': 1, 'wh': 2}
+_GRU_HIDDEN = ('hr', 'hz', 'hn')
+_LECUN_STD = 0.87962566103423978       # std of a standard normal cut to (-2, 2)
+
+
+def _lecun_normal(key: jax_random.Key, shape) -> torch.Tensor:
+    """flax's ``lecun_normal()``: truncated normal in (-2, 2) with std
+    ``1 / sqrt(fan_in)`` (fan-in: every axis but the last)."""
+    std = torch.sqrt(torch.tensor(1.0 / np.prod(shape[:-1]), dtype=torch.float32)) \
+        / torch.tensor(_LECUN_STD, dtype=torch.float32)
+    return jax_random.truncated_normal(key, -2.0, 2.0, shape) * std
+
+
+def _xavier_uniform(key: jax_random.Key, shape) -> torch.Tensor:
+    """flax's ``xavier_uniform()`` of a matrix ``[fan_in, fan_out]``."""
+    variance = torch.tensor(2.0 / (shape[0] + shape[1]), dtype=torch.float32)
+    return jax_random.uniform(key, shape, -1.0, 1.0) * torch.sqrt(3 * variance)
+
+
+def _blocks(draw, key: jax_random.Key, shape, n: int = 3) -> torch.Tensor:
+    """``decoder_fast._concat_init``: ``n`` draws from ``split(key, n)``
+    side by side on the last axis."""
+    block = tuple(shape[:-1]) + (shape[-1] // n,)
+    return torch.cat([draw(k, block) for k in jax_random.split(key, n)], -1)
+
+
+def _acoustic_leaf(key: jax_random.Key, scope, leaf: str, shape, embeddings,
+                   gate: bool) -> Optional[torch.Tensor]:
+    """What flax's ``init`` draws for the acoustic leaf ``scope/leaf`` of
+    flax ``shape``; ``embeddings``: the module's embeddings in creation
+    order; ``gate``: the leaf is a highway layer's ``T`` bias.  None: no
+    initialiser."""
+    if leaf == 'bias':
+        return torch.full(shape, -1.0 if gate else 0.0)
+    if leaf in ('attention_bias', 'bi', 'bn'):
+        return torch.zeros(shape)
+    if leaf == 'scale':
+        return torch.ones(shape)
+    if leaf in _EMBEDDINGS:
+        k = jax_random.flax_key(key, (*scope, embeddings.index(leaf) + 1))
+        return jax_random.truncated_normal(k, -2.0, 2.0, shape) * 0.5
+    if leaf not in _POSITION:
+        return None
+    k = jax_random.flax_key(key, (*scope, _POSITION[leaf]))
+    if leaf == 'kernel':
+        if scope and scope[-1] in _GRU_HIDDEN:
+            return jax_random.orthogonal(k, shape)
+        return _lecun_normal(k, shape)
+    if leaf == 'attention_variable':
+        return _xavier_uniform(k, shape)
+    if leaf == 'wi':
+        return _blocks(_lecun_normal, k, shape)
+    return _blocks(jax_random.orthogonal, k, shape)            # wh
+
+
+@torch.no_grad()
+def flax_acoustic_init(module: nn.Module, key: jax_random.Key,
+                       scope: Tuple[str, ...] = ()) -> nn.Module:
+    """The weights the JAX package's flax ``init`` draws from the
+    ``'params'`` key ``key`` for an acoustic module (a ``Tacotron``, or a
+    decoder cell initialised on its own) whose flax scope is ``scope``:
+    Dense and Conv kernels ``lecun_normal``, GRU hidden kernels
+    ``orthogonal``, the embeddings truncated-normal (std 0.5), the
+    attention vector ``xavier_uniform``, the fused GRU's ``wi``/``wh`` as
+    three such blocks from ``split(key, 3)``; biases 0 (the highway gates'
+    -1), batch-norm scales and variances 1, means 0.  Drawn on the CPU and
+    copied to the module's device, so every device and rank holds the same
+    weights; a parameter with no initialiser raises."""
+    from .models.layers import Highway
+    gates = {'.'.join(filter(None, (n, 'T', 'bias')))
+             for n, m in module.named_modules() if isinstance(m, Highway)}
+    params = dict(module.named_parameters())
+    embeddings = [n for n in _EMBEDDINGS if n in params]
+    for name, p in params.items():
+        path, perm = flax_layout(module, name, p.ndim)
+        *sub, leaf = path.split('/')
+        shape = [0] * p.ndim
+        for i, axis in enumerate(perm or range(p.ndim)):
+            shape[axis] = p.shape[i]
+        val = _acoustic_leaf(key, (*scope, *sub), leaf, tuple(shape), embeddings,
+                             name in gates)
+        if val is None:
+            raise ValueError(f'no flax initialiser for {name}')
+        p.copy_((val if perm is None else val.permute(perm)).to(p.device))
+    for name, buf in module.named_buffers():
+        leaf = name.rsplit('.', 1)[-1]
+        if leaf in ('mean', 'var'):
+            buf.fill_(1.0 if leaf == 'var' else 0.0)
     return module
