@@ -1,0 +1,9 @@
+"""The benchmark's own tests (CPU; tests marked ``gpu`` skip without a
+card): ``python -m pytest port_bench/tests -q``."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
