@@ -31,7 +31,11 @@ or 16, a TMA bulk copy of the slices and fewer barriers per step.
 its kernel on CUDA tensors; there is no fallback from one to the other.  A
 launch error, a grid-barrier timeout or a layout mismatch raises.
 ``LAUNCHES`` counts kernel launches and ``LAST_GRID`` holds the number of
-blocks of each kernel's last launch.
+blocks of each kernel's last launch; while the tracer records
+(``utils/tracing.py``), each ``decode_full`` launch adds its host time,
+taken just before the launch call, to the innermost open span's
+``decode_full_launch_ns``, and the time its error word was read (which
+waits for the kernel) to ``decode_full_done_ns``.
 
 A persistent grid takes every SM of its card, so launches on one card are
 serialized by a per-device lock (taken with a timeout: a launch that cannot
@@ -53,6 +57,7 @@ import torch
 
 from ..models.decoder import out_lengths
 from ..models.decoder_fast import cell_weights
+from ..utils import tracing
 from . import build
 from .build import device_kind, ptr, stream
 from .lsa_kernel import lsa_step_plain
@@ -466,6 +471,7 @@ def _launch_full(lib, fp: FoldedParams, keys, values, mask, steps: int,
     frames, stop = new(steps, b, d.r * d.n_mel), new(steps, b, d.r)
     align, fin = new(steps, b, n), new(steps, b, 1)
     scratch, grid = _scratch(fp, b, n, keys.device), ctypes.c_int(0)
+    tracing.mark('decode_full_launch_ns')
     rc = lib.decode_full(
         ctypes.c_int(fp.wbuf.dtype == torch.bfloat16), meta, ctypes.c_int(n_meta),
         ptr(fp.wbuf), ptr(fp.bases), ptr(fp.fbuf), ptr(keys), ptr(values), ptr(mask),
@@ -474,6 +480,7 @@ def _launch_full(lib, fp: FoldedParams, keys, values, mask, steps: int,
         stream(keys))
     _raise(lib, rc, 'decode_full')
     _finish(scratch, 'decode_full')
+    tracing.mark('decode_full_done_ns')
     LAST_GRID['decode_full'] = grid.value
     return frames, stop, align, fin
 

@@ -39,7 +39,11 @@ from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..text import frontend
+from ..utils import tracing
 from .pipeline import Synthesizer, _round_up
+
+Stamp = Optional[Tuple[int, int, int]]          # tracing.stamp of a submission
+Item = Tuple[object, Future, Stamp]             # payload, its future, its stamp
 
 
 class Coalescer:
@@ -50,7 +54,16 @@ class Coalescer:
     on a Future.  When a batched call fails with more than one payload, the
     dispatcher retries each payload alone, so only the payloads that fail
     on their own receive the exception.  The dispatcher outlives every
-    failure."""
+    failure.
+
+    Spans (``utils/tracing.py``, named by ``name``): ``<name>.wait`` per
+    submission, from ``submit`` to the start of the first call that
+    carries it, child of the submission's ``cause`` (its request), with
+    that ``call`` and ``round``; ``<name>.round`` per collection, from its
+    first item to the window's close, with its ``submissions``, bucket
+    ``groups`` and ``requests``; ``<name>.call`` per batched call, child of
+    its round, with its ``bucket``, ``payloads``, ``solo`` (a retry alone)
+    and ``requests``."""
 
     def __init__(self, fn: Callable[[Hashable, List], Sequence],
                  max_batch: int = 8, window_s: float = 0.006,
@@ -58,24 +71,29 @@ class Coalescer:
         self._fn = fn
         self._max = max(1, int(max_batch))
         self._win = float(window_s)
-        self._q: 'queue.SimpleQueue[Tuple[Hashable, object, Future]]' = (
+        self._wait, self._round, self._call = (f'{name}.wait', f'{name}.round',
+                                               f'{name}.call')
+        self._q: 'queue.SimpleQueue[Tuple[Hashable, object, Future, Stamp]]' = (
             queue.SimpleQueue())
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name=name)
         self._thread.start()
 
-    def submit(self, bucket_key: Hashable, payload) -> Future:
+    def submit(self, bucket_key: Hashable, payload, cause: int = 0) -> Future:
+        """Queue ``payload``; ``cause``: the id of its request's span."""
         fut: Future = Future()
-        self._q.put((bucket_key, payload, fut))
+        self._q.put((bucket_key, payload, fut, tracing.stamp(cause)))
         return fut
 
     def __call__(self, bucket_key: Hashable, payload):
         return self.submit(bucket_key, payload).result()
 
-    def _collect(self) -> Dict[Hashable, List[Tuple[object, Future]]]:
-        """Block for one item, then drain arrivals for the window."""
-        key, payload, fut = self._q.get()
-        groups: Dict[Hashable, List[Tuple[object, Future]]] = {key: [(payload, fut)]}
+    def _collect(self) -> Tuple[Dict[Hashable, List[Item]], Optional[tracing.Span]]:
+        """Block for one item, then drain arrivals for the window; the
+        groups and the round's span (None when the tracer is off)."""
+        key, payload, fut, stamped = self._q.get()
+        rnd = tracing.begin(self._round)
+        groups: Dict[Hashable, List[Item]] = {key: [(payload, fut, stamped)]}
         deadline = time.monotonic() + self._win
         n = 1
         while n < self._max:
@@ -83,37 +101,60 @@ class Coalescer:
             if left <= 0:
                 break
             try:
-                key, payload, fut = self._q.get(timeout=left)
+                key, payload, fut, stamped = self._q.get(timeout=left)
             except queue.Empty:
                 break
-            groups.setdefault(key, []).append((payload, fut))
+            groups.setdefault(key, []).append((payload, fut, stamped))
             n += 1
-        return groups
+        if rnd is not None:
+            rnd.set(submissions=n, groups=len(groups),
+                    requests=[s[1] for items in groups.values() for _, _, s in items if s])
+            tracing.end(rnd)
+        return groups, rnd
 
-    def _run(self, key: Hashable, payloads: List) -> Sequence:
-        results = self._fn(key, payloads)
-        if len(results) != len(payloads):
+    def _run(self, key: Hashable, items: List[Item], rnd: Optional[tracing.Span],
+             solo: bool = False) -> Sequence:
+        with tracing.span(self._call, rnd.id if rnd is not None else 0) as call:
+            if call is not None:
+                self._traced(call, key, items, rnd, solo)
+            results = self._fn(key, [p for p, _, _ in items])
+        if len(results) != len(items):
             raise RuntimeError(f'batch fn returned {len(results)} results '
-                               f'for {len(payloads)} payloads')
+                               f'for {len(items)} payloads')
         return results
+
+    def _traced(self, call: tracing.Span, key: Hashable, items: List[Item],
+                rnd: Optional[tracing.Span], solo: bool) -> None:
+        """The call's numbers, and the wait of each payload it carries
+        first (a solo retry carries none first)."""
+        rid = rnd.id if rnd is not None else 0
+        call.set(payloads=len(items), solo=int(solo), round=rid,
+                 requests=[s[1] for _, _, s in items if s])
+        if isinstance(key, int):
+            call.set(bucket=key)
+        if not solo:
+            for _, _, s in items:
+                if s:
+                    tracing.record(self._wait, s, call.start, call=call.id, round=rid)
 
     def _loop(self):
         while True:
-            for key, items in self._collect().items():
+            groups, rnd = self._collect()
+            for key, items in groups.items():
                 try:
-                    results = self._run(key, [p for p, _ in items])
+                    results = self._run(key, items, rnd)
                 except Exception as e:                       # noqa: BLE001
                     if len(items) == 1:
                         items[0][1].set_exception(e)
                         continue
                     # one bad payload must not fail its cohort: retry alone
-                    for p, f in items:
+                    for item in items:
                         try:
-                            f.set_result(self._run(key, [p])[0])
+                            item[1].set_result(self._run(key, [item], rnd, solo=True)[0])
                         except Exception as ee:              # noqa: BLE001
-                            f.set_exception(ee)
+                            item[1].set_exception(ee)
                     continue
-                for (_, f), r in zip(items, results):
+                for (_, f, _), r in zip(items, results):
                     f.set_result(r)
 
 
@@ -177,11 +218,13 @@ class BatchingFrontend:
             content = np.ascontiguousarray(spec).tobytes()
         return self._vo(self._frame_bucket(spec), (spec, content))
 
-    def _specs(self, clause_lists: List[List[str]]) -> List[np.ndarray]:
+    def _specs(self, clause_lists: List[List[str]],
+               reqs: Sequence[tracing.Span] = ()) -> List[np.ndarray]:
         """Every clause submitted before any result is awaited, so that
-        they coalesce; a text's clauses are concatenated in time."""
-        futs = [[self._ac.submit(self._text_bucket(p), p) for p in cl]
-                for cl in clause_lists]
+        they coalesce; a text's clauses are concatenated in time.  ``reqs``:
+        the texts' request spans (empty while the tracer is off)."""
+        futs = [[self._ac.submit(self._text_bucket(p), p, reqs[i].id if reqs else 0)
+                 for p in cl] for i, cl in enumerate(clause_lists)]
         specs = []
         for fs in futs:
             parts = [np.asarray(f.result(), np.float32) for f in fs]
@@ -195,14 +238,22 @@ class BatchingFrontend:
     def tts_batch(self, texts: List[str], neural: bool = True) -> List[np.ndarray]:
         """Texts -> wavs, each as ``tts`` would give it (clauses synthesized
         one by one, then concatenated); Griffin-Lim synthesis runs on the
-        worker."""
+        worker.  Traced, each text is a ``request`` span, from the call to
+        the return of every wav, and the cause of its submissions."""
         if not neural:
             return self.solo(self.synth.tts_batch, texts, False)
-        clause_lists = [self.synth.clauses(t) for t in texts]
-        wav_futs = [self._vo.submit(self._frame_bucket(s),
-                                    (s, ' '.join(cl).encode('utf-8')))
-                    for cl, s in zip(clause_lists, self._specs(clause_lists))]
-        return [f.result() for f in wav_futs]
+        reqs = tracing.begin_many('request', len(texts))
+        try:
+            clause_lists = [self.synth.clauses(t) for t in texts]
+            specs = self._specs(clause_lists, reqs)
+            wav_futs = [self._vo.submit(self._frame_bucket(s),
+                                        (s, ' '.join(cl).encode('utf-8')),
+                                        reqs[i].id if reqs else 0)
+                        for i, (cl, s) in enumerate(zip(clause_lists, specs))]
+            return [f.result() for f in wav_futs]
+        finally:
+            for r in reqs:
+                tracing.end(r)
 
     def warm_up(self, text: str = 'ni3 hao3') -> None:
         """One request through each long-lived thread, so that no client's

@@ -34,6 +34,19 @@ the JAX package.  Each request's Griffin-Lim phase comes from a
 ``content_generator(data)`` (seeded with the request's content, so that a
 batching server's audio does not depend on arrival order), or from an
 explicit ``theta``.
+
+Spans (``utils/tracing.py``) split the two batched stages, each a child of
+the span open where the stage was called (on a replica's thread, of the
+call that sent the rows there): ``acoustic.text`` (the host text frontend
+and batch assembly; ``rows``, ``real`` texts, text ``bucket``),
+``acoustic.launch`` (the encoder, the decode and the posnet as enqueued;
+``decode_full`` records the host time of its launch and of its error
+word's read, which waits for the kernel), ``acoustic.sync`` (the copy of
+the specs to the host; each row's ``steps``); ``vocoder.prep`` (the
+specs oriented, DC-restored and padded in numpy, the phase drawn, then on
+the replica the copy to the card; ``rows``, ``real`` specs, frame
+``bucket``, ``frames``), ``vocoder.launch`` (template and generator, as
+enqueued), ``vocoder.sync`` (the wav's copy to the host).
 """
 
 from __future__ import annotations
@@ -57,6 +70,7 @@ from ..models.precision import compute_dtype
 from ..ops.fused_decoder import fold_params, fused_decode_full
 from ..text import frontend
 from ..train import checkpoint as ckpt
+from ..utils import tracing
 from ..weights import flax_acoustic_init, flax_vocoder_init, load_flax, load_npz
 
 
@@ -157,7 +171,7 @@ class Synthesizer:
         if not split or self.dp == 1:
             return list(fn(self, *batched))
         chunks = zip(*(t.chunk(self.dp) for t in batched))
-        futs = [pool.submit(fn, rep, *c)
+        futs = [pool.submit(tracing.bind(fn), rep, *c)
                 for pool, rep, c in zip(self._threads, self.replicas, chunks)]
         return [x for f in futs for x in f.result()]
 
@@ -245,10 +259,24 @@ class Synthesizer:
         nat = dsp.spec_to_natural_scale(mags, au).cpu()
         return [dsp.fix_zero_dc(nat[i, :t].T, au).numpy() for i, t in enumerate(lengths)]
 
+    def _spec_chunk(self, text: torch.Tensor, lens: torch.Tensor) -> List[np.ndarray]:
+        """Text ids and lengths -> the natural specs of every row, on this
+        replica."""
+        with tracing.span('acoustic.launch'):
+            out = self._acoustic_rows(text, lens)
+        with tracing.span('acoustic.sync') as sp:
+            specs = self._natural_specs(out, text.shape[0])
+            if sp is not None:
+                r = self.cfg.acoustic.outputs_per_step
+                sp.set(steps=[s.shape[1] // r for s in specs])
+        return specs
+
     def _spec_rows(self, pinyins: List[str], rows: int, split: bool) -> List[np.ndarray]:
-        specs = self._map_rows(
-            lambda rep, t, n: rep._natural_specs(rep._acoustic_rows(t, n), t.shape[0]),
-            *self._text_batch(pinyins, rows, split), split=split)
+        with tracing.span('acoustic.text') as sp:
+            text, lens = self._text_batch(pinyins, rows, split)
+            if sp is not None:
+                sp.set(rows=text.shape[0], real=len(pinyins), bucket=text.shape[1])
+        specs = self._map_rows(Synthesizer._spec_chunk, text, lens, split=split)
         return specs[:len(pinyins)]
 
     def synthesize_spec_batch(self, pinyins: List[str], rows: int = 1) -> List[np.ndarray]:
@@ -344,34 +372,44 @@ class Synthesizer:
             if per_row is not None and len(per_row) != len(specs):
                 raise ValueError(f'{len(per_row)} {name} for {len(specs)} specs')
         au = self.cfg.audio
-        oriented = []
-        for s in specs:
-            s = np.asarray(s, np.float32)
-            if s.shape[0] not in (au.n_freq, au.n_freq - 1):
-                s = s.T
-            oriented.append(dsp.fix_zero_dc(torch.from_numpy(np.ascontiguousarray(s)),
-                                            au).numpy())
-        t_real = [s.shape[1] for s in oriented]
-        t_pad = _round_up(max(max(t_real), 64), 64)
-        b = len(oriented)
-        mags = np.zeros((self._pad_rows(b, rows, split), au.n_freq, t_pad), np.float32)
-        for i, s in enumerate(oriented):
-            mags[i, :, :s.shape[1]] = s
-            mags[i, :, s.shape[1]:] = float(s.min())
-        mags[b:] = mags[:1]                       # fill rows = real work
-        if thetas is not None:
-            theta = torch.stack([torch.as_tensor(t, dtype=torch.float32)
-                                 for t in thetas]).to(self.device)
-        else:
-            gens = generators if generators is not None else [
-                self._generator() for _ in range(b)]
-            theta = dsp.random_phase((b, au.n_freq, t_pad), gens, self.device)
-        theta = torch.cat([theta, theta[:1].expand(mags.shape[0] - b, -1, -1)])
-        wavs = self._map_rows(
-            lambda rep, m, th: rep._vocode_natural(m.to(rep.device),
-                                                   th.to(rep.device)).cpu().numpy(),
-            torch.from_numpy(mags), theta, split=split)
+        with tracing.span('vocoder.prep') as sp:
+            oriented = []
+            for s in specs:
+                s = np.asarray(s, np.float32)
+                if s.shape[0] not in (au.n_freq, au.n_freq - 1):
+                    s = s.T
+                oriented.append(dsp.fix_zero_dc(
+                    torch.from_numpy(np.ascontiguousarray(s)), au).numpy())
+            t_real = [s.shape[1] for s in oriented]
+            t_pad = _round_up(max(max(t_real), 64), 64)
+            b = len(oriented)
+            mags = np.zeros((self._pad_rows(b, rows, split), au.n_freq, t_pad), np.float32)
+            for i, s in enumerate(oriented):
+                mags[i, :, :s.shape[1]] = s
+                mags[i, :, s.shape[1]:] = float(s.min())
+            mags[b:] = mags[:1]                       # fill rows = real work
+            if thetas is not None:
+                theta = torch.stack([torch.as_tensor(t, dtype=torch.float32)
+                                     for t in thetas]).to(self.device)
+            else:
+                gens = generators if generators is not None else [
+                    self._generator() for _ in range(b)]
+                theta = dsp.random_phase((b, au.n_freq, t_pad), gens, self.device)
+            theta = torch.cat([theta, theta[:1].expand(mags.shape[0] - b, -1, -1)])
+            if sp is not None:
+                sp.set(rows=mags.shape[0], real=b, bucket=t_pad, frames=t_real)
+        wavs = self._map_rows(Synthesizer._vocode_chunk, torch.from_numpy(mags), theta,
+                              split=split)
         return [wavs[i][:au.hop_length * t_real[i]] for i in range(b)]
+
+    def _vocode_chunk(self, mags: torch.Tensor, theta: torch.Tensor) -> List[np.ndarray]:
+        """Padded natural specs and phases -> wavs as numpy, on this replica."""
+        with tracing.span('vocoder.prep'):
+            mags, theta = mags.to(self.device), theta.to(self.device)
+        with tracing.span('vocoder.launch'):
+            wav = self._vocode_natural(mags, theta)
+        with tracing.span('vocoder.sync'):
+            return wav.cpu().numpy()
 
     def vocode(self, spec: np.ndarray, theta: Optional[torch.Tensor] = None
                ) -> np.ndarray:

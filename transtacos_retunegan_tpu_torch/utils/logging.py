@@ -1,14 +1,13 @@
 """Logging helpers, ported from ``transtacos_retunegan_tpu/utils/logging.py``:
-a stdout + file logger, a rolling-average window, a wall-time decorator and
-the process's resident set size."""
+a stdout + file logger, a rolling-average window and the process's
+resident set size.  The JAX module's wall-time decorator ``timer`` is not
+ported: the port times its serving path with spans (``utils/tracing.py``)."""
 
 from __future__ import annotations
 
-import functools
 import logging
 import os
 import sys
-import time
 from typing import Optional
 
 
@@ -100,13 +99,3 @@ class ValueWindow:
     def reset(self):
         self._values = []
 
-
-def timer(fn):
-    """Wall-time decorator (reference ``retunegan/utils.py:85-92``)."""
-    @functools.wraps(fn)
-    def wrapped(*args, **kwargs):
-        start = time.time()
-        out = fn(*args, **kwargs)
-        print(f'[timer] {fn.__name__} took {time.time() - start:.3f}s')
-        return out
-    return wrapped
