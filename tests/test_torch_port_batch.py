@@ -208,11 +208,46 @@ def test_coalescer_buckets_never_mix():
         batches.append((bucket, list(payloads)))
         return payloads
 
-    co = Coalescer(fn, max_batch=8, window_s=0.05)
+    co = Coalescer(fn, max_batch=4, window_s=0.05)
     with ThreadPoolExecutor(8) as ex:
-        list(ex.map(lambda i: co(i % 2, i), range(8)))
+        list(ex.map(lambda i: co(i % 2, i), range(24)))
     for bucket, payloads in batches:
         assert all(p % 2 == bucket for p in payloads)
+        assert 1 <= len(payloads) <= 4
+    assert sorted(p for _, ps in batches for p in ps) == list(range(24))
+
+
+@pytest.mark.parametrize('max_batch, keys, late, calls', [
+    (8, [i % 3 for i in range(15)], None,
+     [[0, 3, 6, 9, 12], [1, 4, 7, 10, 13], [2, 5, 8, 11, 14]]),
+    (4, [0] * 10, 0, [[0, 1, 2, 3], [4, 5, 6, 7], [8, 9, 10]]),
+], ids=['three-buckets-of-5', 'one-bucket-of-11'])
+def test_a_round_fills_each_bucket(max_batch, keys, late, calls):
+    """Submissions queued behind a busy dispatcher: each bucket's call
+    takes up to ``max_batch`` of them, in arrival order, and what a full
+    bucket cannot take goes ahead of a later submission of its bucket
+    (``late``, queued while the first call runs)."""
+    entered, go = threading.Event(), threading.Event()
+    seen, later = [], []
+
+    def fn(bucket, payloads):
+        if bucket == 'hold':
+            entered.set()
+            assert go.wait(5)
+        else:
+            seen.append(list(payloads))
+            if late is not None and len(seen) == 1:
+                later.append(co.submit(late, len(keys)))
+        return payloads
+
+    co = Coalescer(fn, max_batch=max_batch, window_s=0.01)
+    futs = [co.submit('hold', 'h')]
+    assert entered.wait(5)
+    futs += [co.submit(k, i) for i, k in enumerate(keys)]
+    go.set()
+    assert [f.result(timeout=5) for f in futs] == ['h'] + list(range(len(keys)))
+    assert [f.result(timeout=5) for f in later] == ([] if late is None else [len(keys)])
+    assert seen == calls
 
 
 def test_coalescer_exception_reaches_the_waiter_and_dispatcher_survives():

@@ -171,7 +171,39 @@ def test_a_profile_switches_the_dispatchers_on():
         assert torch.autograd.profiler._is_profiler_enabled
     assert co(0, None) is False
     assert [s.name for s in tracing.spans()] == ['probe.round', 'probe.wait', 'probe.call']
+    assert tracing.spans(name='probe.round')[0].attrs['carried'] == 0
     assert len(tracing.anchors()) == 1
+
+
+def test_a_round_counts_what_it_carried(traced):
+    """Every round says how many of its submissions the round before held
+    over: here, a bucket of 5 at ``max_batch`` 3 behind a busy dispatcher
+    leaves 2, carried with a later submission of another bucket."""
+    assert all('carried' in s.attrs for s in traced.values() if s.name.endswith('.round'))
+    entered, go = threading.Event(), threading.Event()
+
+    def fn(key, items):
+        if key == 'hold':
+            entered.set()
+            assert go.wait(5)
+        elif items == [0, 1, 2]:
+            futs.append(co.submit('b', 5))
+        return items
+
+    co = Coalescer(fn, max_batch=3, window_s=0.01, name='spill')
+    tracing.enable()
+    futs = [co.submit('hold', None)]
+    assert entered.wait(5)
+    futs += [co.submit('a', i) for i in range(5)]
+    go.set()
+    assert [f.result(timeout=5) for f in futs[:6]] == [None, 0, 1, 2, 3, 4]
+    assert futs[6].result(timeout=5) == 5
+    rounds = sorted(tracing.spans(name='spill.round'), key=lambda s: s.start)
+    assert [(r.attrs['submissions'], r.attrs['groups'], r.attrs['carried'])
+            for r in rounds] == [(1, 1, 0), (3, 1, 0), (3, 2, 2)]
+    calls = tracing.spans(name='spill.call')
+    assert [c.attrs['payloads'] for c in calls if c.parent == rounds[2].id] == [2, 1]
+    assert sum(w.attrs['round'] == rounds[2].id for w in tracing.spans(name='spill.wait')) == 3
 
 
 def test_bind_mark_and_cap(monkeypatch):

@@ -6,6 +6,14 @@ shape bucket that arrive within a small window and runs ONE batched call
 (``Synthesizer.synthesize_spec_batch``: one ``decode_full`` launch for the
 cohort; ``vocode_batch``: one generator forward).
 
+* **Cohorts filled per bucket.**  A collection round takes everything
+  waiting and gives each bucket up to ``max_batch`` of it, so a deep queue
+  spread over several buckets fills each bucket's call instead of sharing
+  ``max_batch`` among them.  What a full bucket cannot take is held over to
+  the next round, ahead of anything that round collects, so no submission
+  is overtaken within its bucket.  The round runs its calls in the order
+  of each group's oldest submission.
+
 * **Arrival-order independence.**  Each request's Griffin-Lim phase comes
   from its content (``Synthesizer.content_generator``), requests group only
   within one shape bucket (text bucket for the acoustic stage, frame bucket
@@ -44,6 +52,7 @@ from .pipeline import Synthesizer, _round_up
 
 Stamp = Optional[Tuple[int, int, int]]          # tracing.stamp of a submission
 Item = Tuple[object, Future, Stamp]             # payload, its future, its stamp
+Entry = Tuple[Hashable, object, Future, Stamp, float]  # key, an Item, its submit's time.monotonic()
 
 
 class Coalescer:
@@ -51,19 +60,22 @@ class Coalescer:
 
     ``fn(bucket_key, payloads) -> results`` runs on the dispatcher thread
     with 1..max_batch payloads that share ``bucket_key``; submitters block
-    on a Future.  When a batched call fails with more than one payload, the
-    dispatcher retries each payload alone, so only the payloads that fail
-    on their own receive the exception.  The dispatcher outlives every
+    on a Future.  Each round runs one call per bucket it collected, each
+    call carrying up to ``max_batch`` of that bucket's submissions (see
+    ``_collect``).  When a batched call fails with more than one payload,
+    the dispatcher retries each payload alone, so only the payloads that
+    fail on their own receive the exception.  The dispatcher outlives every
     failure.
 
     Spans (``utils/tracing.py``, named by ``name``): ``<name>.wait`` per
     submission, from ``submit`` to the start of the first call that
     carries it, child of the submission's ``cause`` (its request), with
     that ``call`` and ``round``; ``<name>.round`` per collection, from its
-    first item to the window's close, with its ``submissions``, bucket
-    ``groups`` and ``requests``; ``<name>.call`` per batched call, child of
-    its round, with its ``bucket``, ``payloads``, ``solo`` (a retry alone)
-    and ``requests``."""
+    first item to the window's close, with the ``submissions``, bucket
+    ``groups`` and ``requests`` its calls carry, and how many of those
+    submissions were ``carried`` (held over from the round before);
+    ``<name>.call`` per batched call, child of its round, with its
+    ``bucket``, ``payloads``, ``solo`` (a retry alone) and ``requests``."""
 
     def __init__(self, fn: Callable[[Hashable, List], Sequence],
                  max_batch: int = 8, window_s: float = 0.006,
@@ -73,8 +85,7 @@ class Coalescer:
         self._win = float(window_s)
         self._wait, self._round, self._call = (f'{name}.wait', f'{name}.round',
                                                f'{name}.call')
-        self._q: 'queue.SimpleQueue[Tuple[Hashable, object, Future, Stamp]]' = (
-            queue.SimpleQueue())
+        self._q: 'queue.SimpleQueue[Entry]' = queue.SimpleQueue()
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name=name)
         self._thread.start()
@@ -82,35 +93,50 @@ class Coalescer:
     def submit(self, bucket_key: Hashable, payload, cause: int = 0) -> Future:
         """Queue ``payload``; ``cause``: the id of its request's span."""
         fut: Future = Future()
-        self._q.put((bucket_key, payload, fut, tracing.stamp(cause)))
+        self._q.put((bucket_key, payload, fut, tracing.stamp(cause), time.monotonic()))
         return fut
 
     def __call__(self, bucket_key: Hashable, payload):
         return self.submit(bucket_key, payload).result()
 
-    def _collect(self) -> Tuple[Dict[Hashable, List[Item]], Optional[tracing.Span]]:
-        """Block for one item, then drain arrivals for the window; the
-        groups and the round's span (None when the tracer is off)."""
-        key, payload, fut, stamped = self._q.get()
+    def _collect(self, held: List[Entry]) -> Tuple[Dict[Hashable, List[Item]], List[Entry],
+                                                   Optional[tracing.Span]]:
+        """One round: the entries held over from the round before, or else
+        one entry waited for; then everything queued, and arrivals until
+        ``window_s`` after the first entry's submission (so a round whose
+        first entry has waited that long only drains the queue).  In that
+        order, each bucket's group takes up to ``max_batch`` entries and the
+        rest is held over.  The groups, in the order of their oldest entry;
+        the entries held over; the round's span (None when the tracer is
+        off), whose ``carried`` counts the held-over entries the groups
+        take."""
+        pending = held or [self._q.get()]
         rnd = tracing.begin(self._round)
-        groups: Dict[Hashable, List[Item]] = {key: [(payload, fut, stamped)]}
-        deadline = time.monotonic() + self._win
-        n = 1
-        while n < self._max:
+        n_held = len(held)
+        deadline = pending[0][4] + self._win
+        while True:
             left = deadline - time.monotonic()
-            if left <= 0:
-                break
             try:
-                key, payload, fut, stamped = self._q.get(timeout=left)
+                pending.append(self._q.get(timeout=left) if left > 0 else self._q.get_nowait())
             except queue.Empty:
                 break
-            groups.setdefault(key, []).append((payload, fut, stamped))
-            n += 1
+        groups: Dict[Hashable, List[Item]] = {}
+        over: List[Entry] = []
+        carried = 0
+        for i, (key, payload, fut, stamped, _) in enumerate(pending):
+            group = groups.setdefault(key, [])
+            if len(group) < self._max:
+                group.append((payload, fut, stamped))
+                if i < n_held:
+                    carried += 1
+            else:
+                over.append(pending[i])
         if rnd is not None:
-            rnd.set(submissions=n, groups=len(groups),
-                    requests=[s[1] for items in groups.values() for _, _, s in items if s])
+            items = [it for g in groups.values() for it in g]
+            rnd.set(submissions=len(items), groups=len(groups), carried=carried,
+                    requests=[s[1] for _, _, s in items if s])
             tracing.end(rnd)
-        return groups, rnd
+        return groups, over, rnd
 
     def _run(self, key: Hashable, items: List[Item], rnd: Optional[tracing.Span],
              solo: bool = False) -> Sequence:
@@ -138,8 +164,9 @@ class Coalescer:
                     tracing.record(self._wait, s, call.start, call=call.id, round=rid)
 
     def _loop(self):
+        held: List[Entry] = []
         while True:
-            groups, rnd = self._collect()
+            groups, held, rnd = self._collect(held)
             for key, items in groups.items():
                 try:
                     results = self._run(key, items, rnd)
