@@ -9,12 +9,15 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_common import few_threads  # noqa: F401
 from torch_port_common import cfg_pair, tacotron_tree
 from transtacos_retunegan_tpu.models.acoustic import Tacotron as JTacotron
 from transtacos_retunegan_tpu.models.acoustic import posnet_apply as jposnet
 from transtacos_retunegan_tpu_torch.models.acoustic import Tacotron, posnet_apply
 from transtacos_retunegan_tpu_torch.text import frontend
 from transtacos_retunegan_tpu_torch.weights import load_flax
+
+pytestmark = pytest.mark.usefixtures('few_threads')
 
 JCFG, PCFG = cfg_pair()
 TOL = dict(atol=1e-5, rtol=1e-5)

@@ -40,6 +40,7 @@ import pytest
 import torch
 from scipy.io import wavfile
 
+from torch_port_common import few_threads  # noqa: F401
 from torch_port_common import cfg_pair, distinct_stop_bias, jax_synthesizer, np_tree
 from transtacos_retunegan_tpu.audio import features as jfeatures
 from transtacos_retunegan_tpu_torch.audio import features as pfeatures
@@ -47,6 +48,8 @@ from transtacos_retunegan_tpu_torch.ops import fused_decoder as PF
 from transtacos_retunegan_tpu_torch.serve import app, httpd
 from transtacos_retunegan_tpu_torch.serve.batcher import BatchingFrontend, Coalescer
 from transtacos_retunegan_tpu_torch.serve.pipeline import Synthesizer
+
+pytestmark = pytest.mark.usefixtures('few_threads')
 
 JCFG, PCFG = cfg_pair()
 TEXTS = ['ni3 hao3 shi4 jie4', 'da4 jia1 hao3', 'zhong1 guo2']     # one text bucket

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_common import few_threads  # noqa: F401
 from torch_port_common import distinct_stop_bias, np_tree
 from transtacos_retunegan_tpu.config import Config as JConfig
 from transtacos_retunegan_tpu.models import decoder as jdec
@@ -28,6 +29,8 @@ from transtacos_retunegan_tpu_torch.config import Config as PConfig
 from transtacos_retunegan_tpu_torch.models import decoder as pdec
 from transtacos_retunegan_tpu_torch.ops import fused_decoder as PF
 from transtacos_retunegan_tpu_torch.weights import load_flax
+
+pytestmark = pytest.mark.usefixtures('few_threads')
 
 B, N, STEPS = 2, 24, 6
 R = 5

@@ -12,10 +12,13 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_common import few_threads  # noqa: F401
 from transtacos_retunegan_tpu.audio import dsp as jdsp
 from transtacos_retunegan_tpu.config import AudioConfig as JAudio
 from transtacos_retunegan_tpu_torch.audio import dsp as tdsp
 from transtacos_retunegan_tpu_torch.config import AudioConfig as TAudio
+
+pytestmark = pytest.mark.usefixtures('few_threads')
 
 JA, TA = JAudio(), TAudio()
 HOP, WIN, NFFT = JA.hop_length, JA.win_length, JA.n_fft

@@ -10,12 +10,15 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_common import few_threads  # noqa: F401
 from torch_port_common import cfg_pair, generator_tree, random_tree
 from transtacos_retunegan_tpu.models import vocoder_layers as jvl
 from transtacos_retunegan_tpu.models.generators import make_generator as jmake
 from transtacos_retunegan_tpu_torch.models import vocoder_layers as tvl
 from transtacos_retunegan_tpu_torch.models.generators import make_generator
 from transtacos_retunegan_tpu_torch.weights import load_flax
+
+pytestmark = pytest.mark.usefixtures('few_threads')
 
 JCFG, PCFG = cfg_pair()
 TOL = dict(atol=2e-5, rtol=1e-5)

@@ -10,9 +10,12 @@ import urllib.request
 import numpy as np
 import pytest
 
+from torch_port_common import few_threads  # noqa: F401
 from torch_port_common import cfg_pair
 from transtacos_retunegan_tpu_torch.serve.httpd import serve
 from transtacos_retunegan_tpu_torch.serve.pipeline import Synthesizer
+
+pytestmark = pytest.mark.usefixtures('few_threads')
 
 _, PCFG = cfg_pair()
 

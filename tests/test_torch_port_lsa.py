@@ -21,11 +21,14 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_common import few_threads  # noqa: F401
 from transtacos_retunegan_tpu.models.decoder import AttentionParams, LSAStep
 from transtacos_retunegan_tpu.ops import lsa_kernel as K
 from transtacos_retunegan_tpu_torch.models import decoder as pdec
 from transtacos_retunegan_tpu_torch.ops import lsa_kernel as PK
 from transtacos_retunegan_tpu_torch.weights import load_flax
+
+pytestmark = pytest.mark.usefixtures('few_threads')
 
 TOL = {'align': 1e-5, 'cum': 1e-5, 'ctx': 1e-4}
 

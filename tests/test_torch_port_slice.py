@@ -23,9 +23,12 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from torch_port_common import few_threads  # noqa: F401
 from torch_port_common import cfg_pair, jax_synthesizer, np_tree
 from transtacos_retunegan_tpu_torch.ops import fused_decoder as PF
 from transtacos_retunegan_tpu_torch.serve.pipeline import Synthesizer
+
+pytestmark = pytest.mark.usefixtures('few_threads')
 
 JCFG, PCFG = cfg_pair()
 TEXT = 'ni3 hao3 shi4 jie4'

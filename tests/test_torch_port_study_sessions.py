@@ -35,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_common import few_threads  # noqa: F401
 import test_torch_port_run_dirs as RD
 from torch_port_common import (acoustic_interceptor, acoustic_tree, vocoder_batch,
                                vocoder_trees, write_npy_corpus)
@@ -55,6 +56,8 @@ from transtacos_retunegan_tpu_torch.serve.pipeline import Synthesizer
 from transtacos_retunegan_tpu_torch.tools import (bf16_ab, convergence_session,
                                                   coverage_diagnosis, decay_session,
                                                   draw_embd_sim)
+
+pytestmark = pytest.mark.usefixtures('few_threads')
 
 JCFG, PCFG = RD.JCFG, RD.PCFG
 N_TEST = 3

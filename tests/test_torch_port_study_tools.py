@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_common import few_threads  # noqa: F401
 from test_torch_port_imports import FILES
 from torch_port_common import acoustic_cfg_pair, write_npy_corpus
 from transtacos_retunegan_tpu.config import Config as JaxConfig
@@ -39,6 +40,8 @@ from transtacos_retunegan_tpu_torch.tools import (bf16_ab, convergence_session,
                                                   sanity_train, variant_ranking)
 from transtacos_retunegan_tpu_torch.tools.tone_corpus import write_corpus
 from transtacos_retunegan_tpu_torch.train.schedules import teacher_forcing_ratio
+
+pytestmark = pytest.mark.usefixtures('few_threads')
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 TOOLS = {'sanity_train': sanity_train, 'convergence_session': convergence_session,
@@ -286,10 +289,16 @@ GAN_PATTERNS = (r'\[(\d+) \(', r'mstft: (\d+\.\d+)', r'total gen: (\d+\.\d+)',
                 r'sc_s_r: (-?\d+\.\d+)', r'sc_s_g: (-?\d+\.\d+)')
 
 
-def test_trainer_log_lines_parse(tmp_path):
+def test_trainer_log_lines_parse(tmp_path, monkeypatch):
     """Both port trainers' CLIs, 2 steps each on the CPU through the
     sessions' ``run_cli``, print one line per step that every pattern the
     JAX tools read parses (the acoustic steps 1 and 2 at ratio 1)."""
+    # the CLIs' processes take two threads each, as ``few_threads`` gives
+    # this module: with a pool of a thread per core beside the other test
+    # processes, the two runs took 2.7x as long (227.5 s against 82.9 s in
+    # a whole run of the suite on 8 cores)
+    monkeypatch.setenv('OMP_NUM_THREADS', '2')
+    monkeypatch.setenv('MKL_NUM_THREADS', '2')
     _, pcfg = acoustic_cfg_pair(remat_decoder=False)
     pcfg = dataclasses.replace(pcfg, audio=dataclasses.replace(pcfg.audio, segment_size=2048),
                                vocoder=dataclasses.replace(

@@ -15,10 +15,13 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_common import few_threads  # noqa: F401
 from transtacos_retunegan_tpu_torch.config import Config
 from transtacos_retunegan_tpu_torch.models.decoder import DecoderCell
 from transtacos_retunegan_tpu_torch.ops import fused_decoder as fd
 from transtacos_retunegan_tpu_torch.weights import seeded_init
+
+pytestmark = pytest.mark.usefixtures('few_threads')
 
 DEFAULT = fd.Dims(n_mel=80, d=256, h=512, a=128, r=5, kwin=31, prenet=(256,), n_gru=2)
 

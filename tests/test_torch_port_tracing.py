@@ -11,10 +11,13 @@ from concurrent.futures import ThreadPoolExecutor
 import pytest
 import torch
 
+from torch_port_common import few_threads  # noqa: F401
 from transtacos_retunegan_tpu_torch.config import Config
 from transtacos_retunegan_tpu_torch.serve.batcher import BatchingFrontend, Coalescer
 from transtacos_retunegan_tpu_torch.serve.pipeline import Synthesizer
 from transtacos_retunegan_tpu_torch.utils import tracing
+
+pytestmark = pytest.mark.usefixtures('few_threads')
 
 # text buckets 16, 16, 32 and 48, so that a round splits into groups
 TEXTS = ['ni3 hao3', 'da4 jia1 hao3', 'zhong1 guo2 ren2 min2 hen3 hao3',

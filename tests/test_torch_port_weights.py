@@ -7,11 +7,14 @@ import copy
 import numpy as np
 import pytest
 
+from torch_port_common import few_threads  # noqa: F401
 from torch_port_common import cfg_pair, jax_synthesizer, np_tree
 from transtacos_retunegan_tpu_torch import weights
 from transtacos_retunegan_tpu_torch.models.acoustic import Tacotron
 from transtacos_retunegan_tpu_torch.models.generators import (
     GeneratorRefineGANSmall, make_generator)
+
+pytestmark = pytest.mark.usefixtures('few_threads')
 
 _, PCFG = cfg_pair()
 
